@@ -1,0 +1,18 @@
+"""repro_torch: DiFuseR on an NVIDIA H100, in PyTorch and CUDA.
+
+A port of the ``repro`` package (JAX and Pallas on a TPU), which stays the
+reference the port is held against. This package imports torch and numpy,
+never jax and nothing of ``repro``.
+
+Layout (module names follow ``repro``):
+
+* ``graphs``    numpy graph container, generators, SNAP loader;
+* ``diffusion`` the model zoo (wc, ic, lt, dic) lowering to edge operands;
+* ``core``      sampling, sketch state, fixpoints, selection, Alg. 4 driver;
+* ``kernels``   four hand-written CUDA kernels with their plain versions,
+                and the device dispatch over them;
+* ``runtime``   ``RunSpec`` and ``run``;
+* ``launch``    ``python -m repro_torch im``.
+
+Entry points run on CUDA unless ``device="cpu"`` is passed.
+"""

@@ -1,0 +1,5 @@
+"""Diffusion model zoo of the port (ic / wc / lt / dic)."""
+from repro_torch.diffusion.models import (DEFAULT_MODEL, DiffusionModel,
+                                          EdgeParams, resolve)
+
+__all__ = ["DEFAULT_MODEL", "DiffusionModel", "EdgeParams", "resolve"]

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+
+Each ``csrc/<name>.cu`` compiles on its own, with ``common.cuh``, into
+``build/repro_torch/<name>-<hash>.so`` under the repository root::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
+
+``<hash>`` covers the sources and the flags, so a stale library is never
+loaded. Nothing is built when the package is imported: ``load`` builds its
+library at first use, and ``build`` starts one ``nvcc`` for each missing
+library, all at once. ``nvcc`` is ``$CUDA_HOME/bin/nvcc`` or the one on
+``PATH``; without it, or when a build fails, these raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+#: the C entry point of each library and its argument types
+SIGNATURES = {
+    "sketch_fill": ("repro_sketch_fill", [_P, _P, _I, _I, _U, _U, _P]),
+    "sketch_cardinality": ("repro_cardinality_stats", [_P, _P, _I, _I, _P]),
+    "sketch_propagate": ("repro_propagate_sweep",
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "cascade_step": ("repro_cascade_sweep",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
+}
+KERNELS = tuple(SIGNATURES)
+
+_LOADED: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    found = str(path) if path.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                           "the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every missing library of ``names`` in parallel. Returns the
+    compiler's report (registers, spills) of each library built now."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (lib, tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+        reports[name] = out
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def load(name: str):
+    """The C entry point of kernel ``name``, built at first use."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        lib = library_path(name)
+        if not lib.exists():
+            build([name])
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn
+
+
+def check(name: str, status: int) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status}")

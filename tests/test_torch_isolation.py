@@ -1,0 +1,106 @@
+"""The port stands alone: importing it loads neither jax nor the reference
+package, no source of it imports either, and no entry point falls back to
+the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for mod in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, check=True, timeout=120).stdout.split(maxsplit=1)
+    assert int(out[0]) > 15, "the walk imported too few modules"
+    assert out[1].strip() == "[]", out[1]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_repro(path):
+    found = IMPORT_RE.findall(path.read_text())
+    assert not found, f"{path} imports {found}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _graph():
+    from repro_torch.graphs import rmat_graph
+
+    return rmat_graph(6, edge_factor=4, seed=1)
+
+
+@pytest.mark.parametrize("entry", ["find_seeds", "build_sketch_matrix",
+                                   "find_seeds_warm", "run", "launcher"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    from repro_torch.core import difuser
+    from repro_torch.launch import im
+    from repro_torch.runtime import RunSpec, run
+
+    g = _graph()
+    cfg = difuser.DiFuserConfig(num_registers=32)
+    calls = {
+        "find_seeds": lambda: difuser.find_seeds(g, 2, cfg),
+        "build_sketch_matrix": lambda: difuser.build_sketch_matrix(g, cfg),
+        "find_seeds_warm": lambda: difuser.find_seeds_warm(
+            g, 2, cfg, matrix=np.zeros((g.n_pad, 32), np.int8),
+            x=np.arange(32, dtype=np.uint32)),
+        "run": lambda: run(g, 2, RunSpec(num_registers=32)),
+        "launcher": lambda: im.run(["--graph", "rmat:6", "--k", "2", "--registers", "32"]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import sketch_cardinality, sketch_fill
+
+    m = torch.zeros((8, 32), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sketch_fill.sketch_fill_cuda(m)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sketch_cardinality.cardinality_stats_cuda(m)
+
+
+def test_dispatch_rejects_other_devices():
+    from repro_torch.kernels import ops
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.sketch_fill(torch.zeros((8, 32), dtype=torch.int8, device="meta"))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+
+
+def test_wrappers_check_operands():
+    from repro_torch.kernels import ops
+
+    with pytest.raises(TypeError, match="int8"):
+        ops.sketch_fill(torch.zeros((8, 32), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.cardinality_stats(torch.zeros((32, 8), dtype=torch.int8).t())

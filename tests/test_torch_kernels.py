@@ -1,0 +1,187 @@
+"""The four kernels' plain versions against the reference's
+``repro.kernels.ref`` (and, for fill and cardinality, their Pallas bodies in
+interpret mode), and the CUDA kernels against their plain versions on a
+CUDA device.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+reference's propagate and cascade Pallas bodies do not run on this jax
+(``pl.load`` is gone), so those two are held against ``repro.kernels.ref``.
+"""
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.sampling import fused_predicate, remix_interval_predicate
+from repro.kernels import ref
+from repro.kernels.sketch_cardinality import cardinality_stats_pallas
+from repro.kernels.sketch_fill import sketch_fill_pallas
+from repro_torch.kernels import (cascade_step, counters, ops, sketch_cardinality,
+                                 sketch_fill, sketch_propagate)
+from repro_torch.kernels.edges import EdgeOperands
+
+REF_PRED = {0: fused_predicate, 1: remix_interval_predicate}
+
+# (n_pad, J, E): a prime edge count, J off multiples of 32 and of 4
+CASES = [(64, 128, 509), (72, 100, 251), (40, 37, 127), (136, 256, 1021)]
+
+
+def _case(n_pad, num_regs, num_edges, seed):
+    rng = np.random.default_rng(seed)
+    m = rng.integers(-1, 33, size=(n_pad, num_regs)).astype(np.int8)
+    m[rng.random(n_pad) < 0.15] = -1
+    m[1] = -1
+    src = rng.integers(0, n_pad, num_edges).astype(np.int32)
+    dst = rng.integers(0, n_pad, num_edges).astype(np.int32)
+
+    def u32(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    h, lo = u32(num_edges), u32(num_edges)
+    thr = u32(num_edges) >> rng.integers(0, 6, num_edges).astype(np.uint32)
+    thr[rng.random(num_edges) < 0.1] = 0
+    order = np.lexsort((src, dst))
+    return m, (src[order], dst[order], h[order], lo[order], thr[order]), u32(num_regs)
+
+
+def _port(m, edges, x, n_pad, device="cpu"):
+    return (torch.from_numpy(m).to(device), EdgeOperands.from_numpy(*edges, n_pad, device),
+            torch.from_numpy(x.view(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("reg_offset,seed", [(0, 0), (32, 4), (0xFFFFFFF0, 7)])
+@pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES)
+def test_sketch_fill_plain(n_pad, num_regs, num_edges, reg_offset, seed):
+    m, _, _ = _case(n_pad, num_regs, num_edges, seed=1)
+    want = np.asarray(ref.sketch_fill_ref(jnp.asarray(m), reg_offset=reg_offset, seed=seed))
+    got = sketch_fill.sketch_fill_plain(torch.from_numpy(m), reg_offset=reg_offset, seed=seed)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[m == -1] == -1).all()
+
+
+@pytest.mark.parametrize("num_regs", [64, 128, 256])
+def test_sketch_fill_plain_vs_pallas(num_regs):
+    m = np.zeros((264, num_regs), np.int8)
+    m[5] = -1
+    want = np.asarray(sketch_fill_pallas(jnp.asarray(m), reg_offset=32, seed=4))
+    got = sketch_fill.sketch_fill_plain(torch.from_numpy(m), reg_offset=32, seed=4)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES)
+def test_cardinality_plain(n_pad, num_regs, num_edges):
+    m, _, _ = _case(n_pad, num_regs, num_edges, seed=2)
+    stat, count = (np.asarray(a) for a in ref.cardinality_stats_ref(jnp.asarray(m)))
+    got = sketch_cardinality.cardinality_stats_plain(torch.from_numpy(m)).numpy()
+    assert got.dtype == np.float32 and got.shape == (2, n_pad)
+    np.testing.assert_allclose(got[0], stat, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got[1], count)
+
+
+@pytest.mark.parametrize("n_pad,num_regs", [(64, 64), (264, 128), (512, 1024)])
+def test_cardinality_plain_vs_pallas(n_pad, num_regs):
+    m = np.array(ref.sketch_fill_ref(jnp.zeros((n_pad, num_regs), jnp.int8)))
+    m[0, : num_regs // 2] = -1
+    stat, count = (np.asarray(a) for a in cardinality_stats_pallas(jnp.asarray(m)))
+    got = sketch_cardinality.cardinality_stats_plain(torch.from_numpy(m)).numpy()
+    np.testing.assert_allclose(got[0], stat, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got[1], count)
+
+
+def _ref_sweep(fn, m, edges, x, variant):
+    src, dst, h, lo, thr = (jnp.asarray(a) for a in edges)
+    return np.asarray(fn(jnp.asarray(m), src, dst, thr, jnp.asarray(x), h, lo,
+                         predicate=REF_PRED[variant]))
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES)
+def test_propagate_plain(n_pad, num_regs, num_edges, variant):
+    m, edges, x = _case(n_pad, num_regs, num_edges, seed=3)
+    want = _ref_sweep(ref.propagate_sweep_ref, m, edges, x, variant)
+    got, changed = sketch_propagate.propagate_sweep_plain(*_port(m, edges, x, n_pad),
+                                                          variant=variant)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert bool(changed.item()) == bool((want != m).any())
+    assert (got.numpy()[m == -1] == -1).all()
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES)
+def test_cascade_plain(n_pad, num_regs, num_edges, variant):
+    m, edges, x = _case(n_pad, num_regs, num_edges, seed=4)
+    want = _ref_sweep(ref.cascade_sweep_ref, m, edges, x, variant)
+    got, changed = cascade_step.cascade_sweep_plain(*_port(m, edges, x, n_pad),
+                                                    variant=variant)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert bool(changed.item()) == bool((want != m).any())
+
+
+def test_cpu_dispatch_takes_plain_versions():
+    m, edges, x = _case(64, 128, 509, seed=5)
+    mt, et, xt = _port(m, edges, x, 64)
+    counters.reset()
+    ops.sketch_fill(mt)
+    ops.cardinality_stats(mt)
+    ops.propagate_sweep(mt, et, xt, variant=0)
+    ops.cascade_sweep(mt, et, xt, variant=1)
+    assert not counters.LAUNCHES
+    assert dict(counters.PLAIN_CALLS) == {"sketch_fill": 1, "sketch_cardinality": 1,
+                                          "sketch_propagate": 1, "cascade_step": 1}
+
+
+def test_edge_rows_group_each_row():
+    _, edges, _ = _case(72, 100, 251, seed=6)
+    e = EdgeOperands.from_numpy(*edges, 72, "cpu")
+    for rows, key, other in ((e.by_src, e.src, e.dst), (e.by_dst, e.dst, e.src)):
+        ptr = rows.rowptr.numpy()
+        assert ptr[0] == 0 and ptr[-1] == 251 and (np.diff(ptr) >= 0).all()
+        for r in range(72):
+            sel = (key == r).numpy()
+            got = sorted(zip(rows.nbr[ptr[r]:ptr[r + 1]].tolist(),
+                             rows.h[ptr[r]:ptr[r + 1]].tolist()))
+            assert got == sorted(zip(other[sel].tolist(), e.h[sel].tolist()))
+
+
+# ------------------------------------------------ on a CUDA device only ----
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    from repro_torch.kernels import build
+
+    try:
+        build.nvcc()
+    except RuntimeError:
+        pytest.skip(f"needs nvcc to build the kernels: none under $CUDA_HOME or on "
+                    f"PATH ({shutil.which('nvcc')})")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES)
+def test_kernels_match_plain_on_cuda(cuda_device, n_pad, num_regs, num_edges):
+    m, edges, x = _case(n_pad, num_regs, num_edges, seed=7)
+    mt, et, xt = _port(m, edges, x, n_pad, cuda_device)
+    if num_regs % 4:  # the kernels move whole 32-bit words of registers
+        for call in (lambda: sketch_fill.sketch_fill_cuda(mt),
+                     lambda: sketch_cardinality.cardinality_stats_cuda(mt),
+                     lambda: sketch_propagate.propagate_sweep_cuda(mt, et, xt, variant=0),
+                     lambda: cascade_step.cascade_sweep_cuda(mt, et, xt, variant=0)):
+            with pytest.raises(ValueError, match="multiple of 4"):
+                call()
+        return
+    assert torch.equal(sketch_fill.sketch_fill_cuda(mt, reg_offset=5, seed=3),
+                       sketch_fill.sketch_fill_plain(mt, reg_offset=5, seed=3))
+    assert torch.equal(sketch_cardinality.cardinality_stats_cuda(mt),
+                       sketch_cardinality.cardinality_stats_plain(mt))
+    for variant in (0, 1):
+        for mod, name in ((sketch_propagate, "propagate_sweep"),
+                          (cascade_step, "cascade_sweep")):
+            a, fa = getattr(mod, name + "_cuda")(mt, et, xt, variant=variant)
+            b, fb = getattr(mod, name + "_plain")(mt, et, xt, variant=variant)
+            assert torch.equal(a, b), (name, variant)
+            assert bool(fa.item()) == bool(fb.item())

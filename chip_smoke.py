@@ -6,24 +6,30 @@
 
 Phases (each raises on failure; none is caught):
 
-1. device: the card's name and power limit (``nvidia-smi``); build the four
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in
-   parallel) and print what ``ptxas`` reports;
+1. device: the card's name and power limit (``nvidia-smi``); build the
+   seven CUDA sources from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+   each, in parallel) and print what ``ptxas`` reports;
 2. each kernel against its plain PyTorch version on the card, on several
    shapes (both predicate forms, ``reg_offset != 0``, VISITED rows, a prime
-   edge count, register counts that are not multiples of 32): equal int8
-   matrices and bit-equal float32 statistics; a register count off
-   multiples of 4 is refused;
+   edge count, register counts that are not multiples of 32; for the
+   serial ring's kernels a prime and an empty bucket, ``num_sweeps`` 1-3
+   and several ``lane_fill``): equal int8 and uint8 outputs and bit-equal
+   float32 statistics; a register count off multiples of 4 is refused;
 3. the kernel path against the plain path on the card at rmat:14, J=256,
    K=8, for wc, ic:0.1, lt and dic:1.0 (for the plain path this script puts
-   the plain versions in place of ``kernels.ops``' four functions): seeds,
-   rebuilds and sweep counts equal, gains and scores to rtol 1e-6;
-4. the slice at full size through the launcher's entry point
+   the plain versions in place of ``kernels.ops``' functions): seeds,
+   rebuilds and sweep counts equal, gains and scores to rtol 1e-6; the same
+   for the ``serial`` backend (grid 2x2, ``degree`` plan, fused prologue of
+   2 sweeps), whose seeds must also equal the single backend's;
+4. the single-device slice at full size through the launcher's entry point
    (``repro_torch.launch.im``: rmat:20, setting 0.1, wc, J=1024, K=50), with
-   the launch counters reset before and read after: every kernel launched,
-   no plain version called;
-5. each kernel at phase 4's shapes: time (CUDA events), its plain version's
-   time, the largest difference between the two, and the bound.
+   the launch counters reset before and read after: every kernel of the path
+   launched, no plain version called;
+4b. the ``serial`` backend at the same size through ``repro_torch.runtime.run``
+   (grid 2x2, ``degree``, fused prologue, ``lane_fill`` 256), counters as in
+   phase 4; its seeds must equal phase 4's;
+5. each kernel at phase 4's and 4b's shapes: time (CUDA events), its plain
+   version's time, the largest difference between the two, and the bound.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
 contract line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -58,6 +64,13 @@ CARD_OPS = 5          # compare, shift, 64-bit add, count
 REGS_PER_WORD = 4     # the sweeps test VISITED on 4 registers at once
 
 FULL = dict(graph="rmat:20", setting="0.1", model="wc", registers=1024)
+# phase 4b's spec: the reference launcher's serial grid, the degree planner
+# and the tuner's fused prologue
+SERIAL = dict(backend="serial", mu_v=2, mu_s=2, partition="degree", local_sweeps=2,
+              fuse_sweeps=True, lane_fill=256)
+SINGLE_KERNELS = ("sketch_fill", "sketch_cardinality", "sketch_propagate", "cascade_step")
+SERIAL_KERNELS = ("fused_sample", "sketch_fill", "sketch_cardinality", "fused_sweep",
+                  "bucket_propagate", "bucket_cascade")
 
 
 def log(*a):
@@ -94,6 +107,18 @@ def phase_build():
                 log(f"    {name}: {line.strip()}")
     for name in build.KERNELS:
         build.load(name)
+
+
+def full_graph():
+    """Phase 4's graph, generated once for the phases that share it."""
+    if "g" not in _GRAPH:
+        from repro_torch.launch.common import make_graph
+
+        _GRAPH["g"] = make_graph(FULL["graph"], FULL["setting"], 0)
+    return _GRAPH["g"]
+
+
+_GRAPH: dict = {}
 
 
 # --------------------------------------------------------------- phase 2 ----
@@ -156,22 +181,91 @@ def phase_kernels():
         log(f"[2] J=37 refused: {e}")
     else:
         check(False, "sketch_fill_cuda took a register count off multiples of 4")
+    phase_ring_kernels()
     torch.cuda.synchronize()
+
+
+def _random_bucket(n_loc, j_loc, num_slots, *, seed, device):
+    """acc and block (VISITED rows in both), the slots of one bucket grouped
+    by write row, and x."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.edges import group_rows
+
+    rng = np.random.default_rng(seed)
+
+    def matrix():
+        m = rng.integers(-1, 33, size=(n_loc, j_loc)).astype(np.int8)
+        m[rng.random(n_loc) < 0.1] = -1
+        return torch.from_numpy(m).to(device)
+
+    u32 = lambda size: rng.integers(0, 1 << 32, size, dtype=np.uint64).astype(np.uint32)
+    w = rng.integers(0, n_loc, num_slots).astype(np.int32)
+    r = rng.integers(0, n_loc, num_slots).astype(np.int32)
+    thr = u32(num_slots) >> rng.integers(1, 8, num_slots).astype(np.uint32)
+    rows = group_rows(*(torch.from_numpy(a.view(np.int32)).to(device)
+                        for a in (w, r, u32(num_slots), u32(num_slots), thr)), n_loc)
+    return matrix(), matrix(), rows, torch.from_numpy(u32(j_loc).view(np.int32)).to(device)
+
+
+def phase_ring_kernels():
+    """The serial ring's kernels against their plain versions."""
+    import torch
+
+    from repro_torch.kernels import bucket_propagate as bp
+    from repro_torch.kernels import fused_sample, fused_sweep
+
+    cases = [(1000, 36, 4099), (777, 100, 0), (4096, 512, 30011), (520, 512, 1)]
+    for i, (n_loc, j_loc, slots) in enumerate(cases):
+        acc, block, rows, x = _random_bucket(n_loc, j_loc, slots, seed=10 + i,
+                                             device="cuda")
+        for variant in (0, 1):
+            for name in ("bucket_propagate", "bucket_cascade"):
+                a, b = acc.clone(), acc.clone()
+                fa = getattr(bp, name + "_cuda")(a, block, rows, x, variant=variant)
+                fb = getattr(bp, name + "_plain")(b, block, rows, x, variant=variant)
+                check(torch.equal(a, b), (name, n_loc, j_loc, slots, variant))
+                check(bool(fa.item()) == bool(fb.item()), (name, "changed"))
+                check(bool((a[acc == -1] == -1).all()), (name, "VISITED kept"))
+            for num_sweeps in (1, 2, 3):
+                for lane_fill in (0, 8, 24, 256):
+                    a = fused_sweep.fused_sweep_cuda(acc, rows, x, variant=variant,
+                                                     num_sweeps=num_sweeps,
+                                                     lane_fill=lane_fill)
+                    b = fused_sweep.fused_sweep_plain(acc, rows, x, variant=variant,
+                                                      num_sweeps=num_sweeps,
+                                                      lane_fill=lane_fill)
+                    check(torch.equal(a, b), ("fused_sweep", n_loc, j_loc, slots,
+                                              variant, num_sweeps, lane_fill))
+            h, lo, thr = rows.h, rows.lo, rows.thr
+            a = fused_sample.fused_sample_cuda(h, lo, thr, x, variant=variant)
+            b = fused_sample.fused_sample_plain(h, lo, thr, x, variant=variant)
+            check(a.dtype == torch.uint8 and torch.equal(a, b),
+                  ("fused_sample", slots, j_loc, variant))
+        log(f"[2] n_loc={n_loc} j_loc={j_loc} slots={slots}: bucket_propagate, "
+            f"bucket_cascade, fused_sweep (num_sweeps 1-3, lane_fill 0/8/24/256) and "
+            f"fused_sample equal their plain versions (both predicates)")
 
 
 # --------------------------------------------------------------- phase 3 ----
 
 @contextlib.contextmanager
 def plain_ops():
-    """Put the plain versions in place of ``kernels.ops``' four functions,
+    """Put the plain versions in place of ``kernels.ops``' functions,
     which the driver calls as module attributes, for the length of a block."""
-    from repro_torch.kernels import (cascade_step, ops, sketch_cardinality,
-                                     sketch_fill, sketch_propagate)
+    from repro_torch.kernels import (bucket_propagate, cascade_step, fused_sample,
+                                     fused_sweep, ops, sketch_cardinality, sketch_fill,
+                                     sketch_propagate)
 
     swap = dict(sketch_fill=sketch_fill.sketch_fill_plain,
                 cardinality_stats=sketch_cardinality.cardinality_stats_plain,
                 propagate_sweep=sketch_propagate.propagate_sweep_plain,
-                cascade_sweep=cascade_step.cascade_sweep_plain)
+                cascade_sweep=cascade_step.cascade_sweep_plain,
+                fused_sample=fused_sample.fused_sample_plain,
+                fused_sweep=fused_sweep.fused_sweep_plain,
+                bucket_propagate=bucket_propagate.bucket_propagate_plain,
+                bucket_cascade=bucket_propagate.bucket_cascade_plain)
     saved = {name: getattr(ops, name) for name in swap}
     try:
         for name, fn in swap.items():
@@ -182,39 +276,65 @@ def plain_ops():
             setattr(ops, name, fn)
 
 
+def _same_run(kern, plain, what) -> None:
+    """Seeds, rebuilds and sweep counts equal; gains and scores to rtol 1e-6."""
+    import numpy as np
+
+    np.testing.assert_array_equal(kern.seeds, plain.seeds)
+    np.testing.assert_array_equal(kern.rebuilds, plain.rebuilds)
+    check(kern.propagate_iters == plain.propagate_iters, (what, "build sweeps"))
+    for key in ("cascade_sweeps", "rebuild_sweeps"):
+        check(kern.stats[key] == plain.stats[key], (what, key))
+    np.testing.assert_allclose(kern.est_gains, plain.est_gains, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(kern.scores, plain.scores, rtol=1e-6, atol=0)
+
+
+def _kernel_and_plain(fn, kernels, what):
+    """Run ``fn`` on the kernel path, then on the plain path; check which
+    path ran by the counters, and that the two agree."""
+    from repro_torch.kernels import counters
+
+    counters.reset()
+    t0 = time.perf_counter()
+    kern = fn()
+    t1 = time.perf_counter()
+    check(not counters.PLAIN_CALLS and set(counters.LAUNCHES) == set(kernels),
+          f"{what} kernel path: launches {dict(counters.LAUNCHES)}, plain "
+          f"{dict(counters.PLAIN_CALLS)}")
+    counters.reset()
+    with plain_ops():
+        plain = fn()
+    t2 = time.perf_counter()
+    check(not counters.LAUNCHES and set(counters.PLAIN_CALLS) == set(kernels),
+          f"{what} plain path launched {dict(counters.LAUNCHES)}")
+    _same_run(kern, plain, what)
+    return kern, t1 - t0, t2 - t1
+
+
 def phase_parity():
     import numpy as np
 
-    from repro_torch.core.difuser import DiFuserConfig, find_seeds
     from repro_torch.graphs import rmat_graph
-    from repro_torch.kernels import counters
+    from repro_torch.runtime import RunSpec, run
 
     g = rmat_graph(14, setting="0.1", seed=0)
     for model in ("wc", "ic:0.1", "lt", "dic:1.0"):
-        cfg = DiFuserConfig(num_registers=256, model=model)
-        counters.reset()
-        t0 = time.perf_counter()
-        kern = find_seeds(g, 8, cfg, device="cuda")
-        t1 = time.perf_counter()
-        check(not counters.PLAIN_CALLS and len(counters.LAUNCHES) == 4,
-              f"kernel path: launches {dict(counters.LAUNCHES)}, plain "
-              f"{dict(counters.PLAIN_CALLS)}")
-        counters.reset()
-        with plain_ops():
-            plain = find_seeds(g, 8, cfg, device="cuda")
-        t2 = time.perf_counter()
-        check(not counters.LAUNCHES and len(counters.PLAIN_CALLS) == 4,
-              f"plain path launched {dict(counters.LAUNCHES)}")
-        np.testing.assert_array_equal(kern.seeds, plain.seeds)
-        np.testing.assert_array_equal(kern.rebuilds, plain.rebuilds)
-        check(kern.propagate_iters == plain.propagate_iters, (model, "build sweeps"))
-        check(kern.stats["cascade_sweeps"] == plain.stats["cascade_sweeps"],
-              (model, "cascade sweeps"))
-        np.testing.assert_allclose(kern.est_gains, plain.est_gains, rtol=1e-6, atol=0)
-        np.testing.assert_allclose(kern.scores, plain.scores, rtol=1e-6, atol=0)
+        single = RunSpec(num_registers=256, model=model)
+        kern, t_k, t_p = _kernel_and_plain(
+            lambda: run(g, 8, single, device="cuda").result, SINGLE_KERNELS,
+            f"single {model}")
         log(f"[3] rmat:14 J=256 K=8 {model}: seeds {kern.seeds.tolist()} "
             f"sweeps={kern.propagate_iters} rebuilds={int(kern.rebuilds.sum())} "
-            f"equal; kernel path {t1 - t0:.2f}s, plain path {t2 - t1:.2f}s")
+            f"equal; kernel path {t_k:.2f}s, plain path {t_p:.2f}s")
+        serial = RunSpec(num_registers=256, model=model, **SERIAL)
+        ring, t_k, t_p = _kernel_and_plain(
+            lambda: run(g, 8, serial, device="cuda").result, SERIAL_KERNELS,
+            f"serial {model}")
+        np.testing.assert_array_equal(ring.seeds, kern.seeds)
+        log(f"[3] serial 2x2 degree fused prologue, {model}: seeds equal the single "
+            f"backend's and the plain path's (sweeps={ring.propagate_iters}, cascade "
+            f"sweeps={ring.stats['cascade_sweeps']}); kernel path {t_k:.2f}s, plain "
+            f"path {t_p:.2f}s")
 
 
 # --------------------------------------------------------------- phase 4 ----
@@ -252,7 +372,159 @@ def phase_full(k: int) -> dict:
     return out
 
 
+def phase_full_serial(k: int, single_seeds) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import counters
+    from repro_torch.runtime import RunSpec, run
+
+    g = full_graph()
+    spec = RunSpec(num_registers=FULL["registers"], model=FULL["model"], **SERIAL)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    report = run(g, k, spec, device="cuda")
+    wall = time.perf_counter() - t0
+    launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    res, st, part = report.result, report.result.stats, report.partition
+    log(f"[4b] serial {FULL['graph']} J={FULL['registers']} K={k} grid "
+        f"{part.mu_v}x{part.mu_s} {SERIAL['partition']}, local_sweeps "
+        f"{SERIAL['local_sweeps']} fused, lane_fill {SERIAL['lane_fill']}: host prep "
+        f"dst sort {st['sort_s']:.3f}s, sample sets {st['sample_s']:.3f}s, plan {st['plan_s']:.3f}s, buckets "
+        f"{st['buckets_s']:.3f}s, ring state {st['state_s']:.3f}s; build "
+        f"{st['build_s']:.3f}s ({res.propagate_iters} sweeps); rounds "
+        f"{st['rounds_s']:.3f}s ({st['cascade_sweeps']} cascade sweeps, "
+        f"{st['rebuild_sweeps']} rebuild sweeps); total {wall:.2f}s; rebuilds "
+        f"{int(res.rebuilds.sum())}/{k}; max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"[4b] partition: {part.stats().describe()}; planned "
+        f"{part.plan.predicted.describe()}; bucket widths propagate "
+        f"{[int(a.shape[-1]) for a in part.p_h]}, cascade "
+        f"{[int(a.shape[-1]) for a in part.c_h]}; sampled edges per sim shard "
+        f"{part.p_counts.sum(axis=(0, 2)).tolist()}")
+    log(f"[4b] launches {launches}; plain calls {plain}")
+    check(not plain, f"plain versions ran on the serial path: {plain}")
+    missing = [n for n in SERIAL_KERNELS if launches.get(n, 0) <= 0]
+    check(not missing, f"kernels not launched on the serial path: {missing}")
+    seeds = res.seeds
+    check(len(set(seeds.tolist())) == k and ((seeds >= 0) & (seeds < g.n)).all(),
+          "serial seeds not k distinct vertices")
+    check(np.isfinite(res.scores[-1]) and res.scores[-1] > 0,
+          f"influence estimate {res.scores[-1]}")
+    if single_seeds is not None:
+        np.testing.assert_array_equal(seeds, np.asarray(single_seeds))
+        log("[4b] serial seeds equal the single backend's (phase 4)")
+    return dict(launches=launches, peak_bytes=peak, wall_s=wall, partition=part,
+                seeds=seeds.tolist(), score=float(res.scores[-1]),
+                propagate_iters=res.propagate_iters, **st)
+
+
 # --------------------------------------------------------------- phase 5 ----
+
+def phase_ring_timings(serial: dict) -> list:
+    """The serial ring's kernels at phase 4b's shapes: the largest propagate
+    and cascade buckets, the largest kk = 0 bucket fused over 2 sweeps, and
+    one chunk of fused_sample. The state is 4b's partition after the build;
+    the cascade times the first round's first sweep."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.difuser import DiFuserConfig
+    from repro_torch.core.fasst import SAMPLE_CHUNK
+    from repro_torch.diffusion import resolve
+    from repro_torch.kernels import bucket_propagate as bp
+    from repro_torch.kernels import fused_sample, fused_sweep
+    from repro_torch.partition.serial import _RingState
+
+    part = serial["partition"]
+    launches = serial["launches"]
+    cfg = DiFuserConfig(num_registers=FULL["registers"], model=FULL["model"])
+    g = full_graph().sorted_by_dst()
+    st = _RingState(part, g, cfg,
+                    local_sweeps=SERIAL["local_sweeps"], fuse_sweeps=True,
+                    lane_fill=SERIAL["lane_fill"])
+    st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
+    built = st.m.clone()
+    seed_v, _ = st.select(part.mu_s * part.j_loc, part.n_pad)
+    st.commit(seed_v)
+    variant, j = st.variant, part.j_loc
+    ops_per_pair = SWEEP_OPS[variant]
+    longest = {name: max(int(torch.diff(r.rowptr).max().item())
+                         for step in grid for by_v in step for r in by_v)
+               for name, grid in (("propagate", st.p_rows), ("cascade", st.c_rows))}
+    log(f"[5] longest row over all buckets: {longest}")
+
+    def bucket_bytes(rows):
+        n_w = int((torch.diff(rows.rowptr) > 0).sum().item())
+        n_r = int(torch.unique(rows.nbr).numel())
+        slots = rows.nbr.numel()
+        return 2 * n_w * j + n_r * j + 16 * slots + 4 * (part.n_loc + 1) + 4 * j, slots
+
+    out = []
+    for name, replaces, grid, counts, m in (
+            ("bucket_propagate", "src/repro/kernels/bucket_propagate.py:85", st.p_rows,
+             part.p_counts, built),
+            # no Pallas kernel: the reference's jnp merge of the cascade buckets
+            ("bucket_cascade", "src/repro/core/distributed.py:88", st.c_rows,
+             part.c_counts, st.m)):
+        v, s, kk = np.unravel_index(int(np.argmax(counts)), counts.shape)
+        rows, x = grid[kk][v][s], st.x[s]
+        block = m[(v + kk) % part.mu_v, s]
+        acc = m[v, s]
+        nbytes, slots = bucket_bytes(rows)
+        if name == "bucket_propagate":
+            ops = ops_per_pair * slots * j
+        else:   # one VISITED test per (slot, word), the predicate on VISITED reads
+            vis_pairs = int((block == -1).sum(1)[rows.nbr.long()].sum().item())
+            ops = slots * j // REGS_PER_WORD + ops_per_pair * vis_pairs
+        kern = getattr(bp, name + "_cuda")
+        plain = getattr(bp, name + "_plain")
+        a, b = acc.clone(), acc.clone()
+        kern(a, block, rows, x, variant=variant)
+        plain(b, block, rows, x, variant=variant)
+        err = _max_abs_err(a, b)
+        call = lambda f: (lambda t: f(t, block, rows, x, variant=variant))
+        ms = _time_in_place_ms(acc.clone, call(kern), reps=5)
+        plain_ms = _time_in_place_ms(acc.clone, call(plain), reps=1)
+        log(f"[5] {name}: bucket (v={v}, s={s}, kk={kk}) of {slots} slots, longest row "
+            f"{int(torch.diff(rows.rowptr).max().item())} slots")
+        out.append(_row(name, "bucket_propagate.cu", replaces, launches.get(name, 0), err,
+                        ms, plain_ms, _bound(nbytes, ops)))
+
+    v, s = np.unravel_index(int(np.argmax(part.p_counts[:, :, 0])), part.p_counts.shape[:2])
+    rows, x, m = st.p_rows[0][v][s], st.x[s], built[v, s]
+    slots = rows.nbr.numel()
+    fuse = dict(variant=variant, num_sweeps=SERIAL["local_sweeps"],
+                lane_fill=SERIAL["lane_fill"])
+    err = _max_abs_err(fused_sweep.fused_sweep_cuda(m, rows, x, **fuse),
+                       fused_sweep.fused_sweep_plain(m, rows, x, **fuse))
+    out.append(_row(
+        "fused_sweep", "fused_sweep.cu", "src/repro/kernels/fused_sweep.py:103",
+        launches.get("fused_sweep", 0), err,
+        _time_ms(lambda: fused_sweep.fused_sweep_cuda(m, rows, x, **fuse), reps=5),
+        _time_ms(lambda: fused_sweep.fused_sweep_plain(m, rows, x, **fuse), reps=1),
+        _bound(2 * part.n_loc * j + 16 * slots + 4 * (part.n_loc + 1) + 4 * j,
+               SERIAL["local_sweeps"] * ops_per_pair * slots * j)))
+    log(f"[5] fused_sweep: kk=0 bucket (v={v}, s={s}) of {slots} slots, "
+        f"{SERIAL['local_sweeps']} sweeps, {(j // 4 + 3) // 4} thread blocks")
+
+    ep = resolve(cfg.model).edge_params(g, seed=cfg.seed)
+    sample = [torch.from_numpy(a[:SAMPLE_CHUNK].view(np.int32)).cuda()
+              for a in (ep.h, ep.lo, ep.thr)]
+    num_e = sample[0].numel()
+    x = st.x[0]
+    err = _max_abs_err(fused_sample.fused_sample_cuda(*sample, x, variant=variant),
+                       fused_sample.fused_sample_plain(*sample, x, variant=variant))
+    out.append(_row(
+        "fused_sample", "fused_sample.cu", "src/repro/kernels/fused_sample.py:60",
+        launches.get("fused_sample", 0), err,
+        _time_ms(lambda: fused_sample.fused_sample_cuda(*sample, x, variant=variant), reps=5),
+        _time_ms(lambda: fused_sample.fused_sample_plain(*sample, x, variant=variant), reps=1),
+        _bound(num_e * j + 12 * num_e + 4 * j, ops_per_pair * num_e * j)))
+    return out
+
+
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     import torch
@@ -267,6 +539,42 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_in_place_ms(setup, fn, reps: int) -> float:
+    """Mean time of ``fn(setup())`` over ``reps`` launches, each on a fresh
+    ``setup()`` (an in-place kernel must not see its own output), timed by
+    events around the launch alone."""
+    import torch
+
+    fn(setup())
+    total = 0.0
+    for _ in range(reps):
+        arg = setup()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _row(name, file, replaces, launches, err, ms, plain_ms, bound) -> dict:
+    bound_ms, bound_by = bound
+    log(f"[5] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"by {bound_by}), launches {launches}, max_abs_err {err}")
+    check(err == 0.0, f"{name} differs from its plain version at full size")
+    return dict(name=name, route="cuda", source="src/repro_torch/kernels/csrc/" + file,
+                replaces=replaces, launches=int(launches), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def _max_abs_err(a, b) -> float:
@@ -286,10 +594,9 @@ def phase_timings(full: dict) -> list:
     from repro_torch.diffusion import resolve
     from repro_torch.kernels import (cascade_step, sketch_cardinality, sketch_fill,
                                      sketch_propagate)
-    from repro_torch.launch.common import make_graph
 
     cfg = DiFuserConfig(num_registers=FULL["registers"], model=FULL["model"])
-    g, x = normalize_inputs(make_graph(FULL["graph"], FULL["setting"], 0), cfg)
+    g, x = normalize_inputs(full_graph(), cfg)
     edges = edge_operands(g, cfg, "cuda")
     x_t = x_tensor(x, "cuda")
     variant = resolve(cfg.model).variant
@@ -304,11 +611,7 @@ def phase_timings(full: dict) -> list:
     vis_rows = (m_casc == -1).sum(1)
     vis_pairs = int(vis_rows[edges.src.long()].sum().item())
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    src = "src/repro_torch/kernels/csrc/"
+    bound = _bound
     specs = [
         ("sketch_fill", "sketch_fill.cu", "src/repro/kernels/sketch_fill.py:47",
          lambda: sketch_fill.sketch_fill_cuda(m),
@@ -334,17 +637,10 @@ def phase_timings(full: dict) -> list:
                num_edges * num_regs // REGS_PER_WORD + SWEEP_OPS[variant] * vis_pairs)),
     ]
     rows = []
-    for name, file, replaces, kern, plain, (bound_ms, bound_by) in specs:
+    for name, file, replaces, kern, plain, bnd in specs:
         err = _max_abs_err(kern(), plain())
-        ms = _time_ms(kern, reps=5)
-        plain_ms = _time_ms(plain, reps=1)
-        rows.append(dict(name=name, route="cuda", source=src + file, replaces=replaces,
-                         launches=int(full["launches"].get(name, 0)), max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None))
-        log(f"[5] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"by {bound_by}), max_abs_err {err}")
-        check(err == 0.0, f"{name} differs from its plain version at full size")
+        rows.append(_row(name, file, replaces, full["launches"].get(name, 0), err,
+                         _time_ms(kern, reps=5), _time_ms(plain, reps=1), bnd))
     out_deg = torch.diff(edges.by_src.rowptr).max().item()
     in_deg = torch.diff(edges.by_dst.rowptr).max().item()
     log(f"[5] longest row walk: out-degree {out_deg} (propagate), in-degree {in_deg} "
@@ -356,10 +652,10 @@ def phase_timings(full: dict) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5")
-    ap.add_argument("--k", type=int, default=50, help="seed rounds of phase 4")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5")
+    ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
-    phases = {int(p) for p in args.phases.split(",")}
+    phases = set(args.phases.split(","))
 
     import torch
 
@@ -374,17 +670,25 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     phase_build()
-    if 2 in phases:
+    if "2" in phases:
         phase_kernels()
-    if 3 in phases:
+    if "3" in phases:
         phase_parity()
-    full = phase_full(args.k) if 4 in phases else None
-    rows = phase_timings(full) if 5 in phases and full else []
+    full = phase_full(args.k) if "4" in phases else None
+    serial = None
+    if "4b" in phases:
+        serial = phase_full_serial(args.k, full["seeds"] if full else None)
+    rows = []
+    if "5" in phases and full:
+        rows += phase_timings(full)
+    if "5" in phases and serial:
+        rows += phase_ring_timings(serial)
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
-        (OUT / "kernels.json").write_text(json.dumps(dict(rows=rows, full=full,
-                                                          smi=smi), indent=1))
+        serial_out = {k: v for k, v in (serial or {}).items() if k != "partition"}
+        (OUT / "kernels.json").write_text(json.dumps(
+            dict(rows=rows, full=full, serial=serial_out, smi=smi), indent=1))
         print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

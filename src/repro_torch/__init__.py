@@ -8,10 +8,12 @@ Layout (module names follow ``repro``):
 
 * ``graphs``    numpy graph container, generators, SNAP loader;
 * ``diffusion`` the model zoo (wc, ic, lt, dic) lowering to edge operands;
-* ``core``      sampling, sketch state, fixpoints, selection, Alg. 4 driver;
-* ``kernels``   four hand-written CUDA kernels with their plain versions,
-                and the device dispatch over them;
-* ``runtime``   ``RunSpec`` and ``run``;
+* ``core``      sampling, FASST, sketch state, fixpoints, selection, Alg. 4
+                driver;
+* ``partition`` planners, the 2-D bucket builder, the serial-ring executor;
+* ``kernels``   hand-written CUDA kernels with their plain versions, and the
+                device dispatch over them;
+* ``runtime``   ``RunSpec``, the ``single`` and ``serial`` backends, ``run``;
 * ``launch``    ``python -m repro_torch im``.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed.

@@ -1,3 +1,3 @@
-"""The port's kernels: four hand-written CUDA kernels (``csrc/``), each with
-its plain PyTorch version beside its wrapper, and the device dispatch over
-them (``ops``)."""
+"""The port's kernels: eight hand-written CUDA kernels in seven sources
+(``csrc/``), each with its plain PyTorch version beside its wrapper, and the
+device dispatch over them (``ops``)."""

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (plain C interface, ctypes).
 
-Each ``csrc/<name>.cu`` compiles on its own, with ``common.cuh``, into
-``build/repro_torch/<name>-<hash>.so`` under the repository root::
+Each ``csrc/<source>.cu`` compiles on its own, with ``common.cuh``, into
+``build/repro_torch/<source>-<hash>.so`` under the repository root::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
@@ -27,17 +27,24 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-#: the C entry point of each library and its argument types
+_P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_SWEEP = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+#: kernel name -> (source ``csrc/<source>.cu``, C entry point, argument types)
 SIGNATURES = {
-    "sketch_fill": ("repro_sketch_fill", [_P, _P, _I, _I, _U, _U, _P]),
-    "sketch_cardinality": ("repro_cardinality_stats", [_P, _P, _I, _I, _P]),
-    "sketch_propagate": ("repro_propagate_sweep",
-                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
-    "cascade_step": ("repro_cascade_sweep",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "sketch_fill": ("sketch_fill", "repro_sketch_fill", [_P, _P, _I, _I, _U, _U, _P]),
+    "sketch_cardinality": ("sketch_cardinality", "repro_cardinality_stats",
+                           [_P, _P, _I, _I, _P]),
+    "sketch_propagate": ("sketch_propagate", "repro_propagate_sweep", _SWEEP),
+    "cascade_step": ("cascade_step", "repro_cascade_sweep", _SWEEP),
+    "fused_sample": ("fused_sample", "repro_fused_sample",
+                     [_P, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "fused_sweep": ("fused_sweep", "repro_fused_sweep",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "bucket_propagate": ("bucket_propagate", "repro_bucket_propagate", _SWEEP),
+    "bucket_cascade": ("bucket_propagate", "repro_bucket_cascade", _SWEEP),
 }
 KERNELS = tuple(SIGNATURES)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -52,16 +59,17 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(source: str) -> Path:
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (CSRC / "common.cuh", CSRC / f"{source}.cu"):
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every missing library of ``names`` in parallel. Returns the
-    compiler's report (registers, spills) of each library built now."""
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every missing library of the sources ``names`` in parallel.
+    Returns the compiler's report (registers, spills) of each library built
+    now."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -89,10 +97,10 @@ def load(name: str):
     """The C entry point of kernel ``name``, built at first use."""
     fn = _LOADED.get(name)
     if fn is None:
-        lib = library_path(name)
+        source, symbol, argtypes = SIGNATURES[name]
+        lib = library_path(source)
         if not lib.exists():
-            build([name])
-        symbol, argtypes = SIGNATURES[name]
+            build([source])
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.edges import EdgeOperands
+from repro_torch.kernels.edges import EdgeOperands, EdgeRows
 
 #: elements of (edge, register) or (row, register) work per step of a plain
 #: version; bounds its int64 temporaries to a few hundred MiB
@@ -31,17 +31,35 @@ def check_cuda(m: torch.Tensor) -> torch.device:
     return m.device
 
 
+def check_x(x: torch.Tensor, num_regs: int) -> None:
+    if x.dtype != torch.int32 or tuple(x.shape) != (num_regs,) or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous int32[{num_regs}] tensor "
+                         f"(uint32 bits), got {x.dtype} {tuple(x.shape)}")
+
+
 def check_sweep(m: torch.Tensor, edges: EdgeOperands, x: torch.Tensor) -> None:
     """Operands of a propagate or cascade sweep."""
     check_matrix(m)
     if edges.n_pad != m.shape[0]:
         raise ValueError(f"edges are for {edges.n_pad} rows, m has {m.shape[0]}")
-    if x.dtype != torch.int32 or tuple(x.shape) != (m.shape[1],) or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous int32[{m.shape[1]}] tensor "
-                         f"(uint32 bits), got {x.dtype} {tuple(x.shape)}")
+    check_x(x, m.shape[1])
     if edges.device != m.device or x.device != m.device:
         raise ValueError(f"m, x and edges must share a device: {m.device}, "
                          f"{x.device}, {edges.device}")
+
+
+def check_rows(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor) -> None:
+    """Operands of a sweep over grouped rows (``kernels.edges.group_rows``)
+    whose write rows and read rows both index ``m``'s rows."""
+    check_matrix(m)
+    check_x(x, m.shape[1])
+    if tuple(rows.rowptr.shape) != (m.shape[0] + 1,):
+        raise ValueError(f"rows are for {rows.rowptr.shape[0] - 1} rows, m has {m.shape[0]}")
+    tensors = (rows.rowptr, rows.nbr, rows.h, rows.lo, rows.thr)
+    if any(t.dtype != torch.int32 or not t.is_contiguous() for t in tensors):
+        raise ValueError("row operands must be contiguous int32 tensors")
+    if any(t.device != m.device for t in (x, *tensors)):
+        raise ValueError(f"m, x and rows must share a device, m is on {m.device}")
 
 
 def stream(device: torch.device) -> int:

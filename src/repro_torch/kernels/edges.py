@@ -66,15 +66,24 @@ class EdgeOperands:
             raise ValueError("edge count must stay below 2^31 (int32 row pointers)")
         h, lo, thr = bits(h), bits(lo), bits(thr)
         return EdgeOperands(n_pad=int(n_pad), src=src, dst=dst, h=h, lo=lo, thr=thr,
-                            by_src=_rows(src, dst, h, lo, thr, n_pad),
-                            by_dst=_rows(dst, src, h, lo, thr, n_pad))
+                            by_src=group_rows(src, dst, h, lo, thr, n_pad),
+                            by_dst=group_rows(dst, src, h, lo, thr, n_pad))
 
 
-def _rows(key, nbr, h, lo, thr, n_pad: int) -> EdgeRows:
+def group_rows(key, nbr, h, lo, thr, n_rows: int) -> EdgeRows:
+    """Group edges by ``key`` (the row a sweep writes, in ``[0, n_rows)``),
+    keeping their order within a row."""
     order = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key.to(torch.int64), minlength=n_pad)
-    rowptr = torch.zeros(n_pad + 1, dtype=torch.int32, device=key.device)
+    counts = torch.bincount(key.to(torch.int64), minlength=n_rows)
+    rowptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=key.device)
     rowptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
     return EdgeRows(rowptr=rowptr, nbr=nbr[order].contiguous(),
                     h=h[order].contiguous(), lo=lo[order].contiguous(),
                     thr=thr[order].contiguous())
+
+
+def row_ids(rows: EdgeRows) -> torch.Tensor:
+    """int64 write row of each grouped edge (the plain versions scatter by it)."""
+    n_rows = rows.rowptr.shape[0] - 1
+    return torch.repeat_interleave(torch.arange(n_rows, device=rows.rowptr.device),
+                                   torch.diff(rows.rowptr).to(torch.int64))

@@ -35,6 +35,11 @@ def add_common_im_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     grp.add_argument("--model", default="wc", help="wc|ic[:p]|lt|dic[:lambda]")
     grp.add_argument("--registers", type=int, default=1024)
     grp.add_argument("--seed", type=int, default=0)
+    grp.add_argument("--partition", default="block",
+                     help="vertex-assignment strategy of the 2-D partition: "
+                          "block|degree|edge|random")
+    grp.add_argument("--backend", default="auto", choices=("auto", "single", "serial"),
+                     help="execution backend (auto: single unless a grid is asked for)")
     grp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                      help="cuda runs the CUDA kernels; cpu their plain versions")
     return ap

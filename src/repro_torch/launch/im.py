@@ -1,11 +1,14 @@
 """DiFuseR driver of the port, the workload end to end::
 
     PYTHONPATH=src python -m repro_torch im --graph rmat:20 --setting 0.1 \
-        --k 50 --registers 1024 [--model wc] [--device cuda|cpu]
+        --k 50 --registers 1024 [--model wc] [--device cuda|cpu] \
+        [--backend auto|single|serial] [--partition degree] [--mu-v 2]
 
 It prints what the reference launcher prints (``graph n=… m=…``, then
+``backend=…``, with the measured partition stats on ``serial``, and
 ``difuser: …s influence(est)=… rebuilds=…/K``) and a line on where the time
-went.
+went. The ``serial`` backend runs a ``(mu_v, 2)`` shard grid, ``mu_v`` from
+``--mu-v`` or 2, as the reference launcher does without ``--devices``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ def run(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m repro_torch im")
     add_common_im_args(ap)
     ap.add_argument("--k", type=int, default=50)
+    ap.add_argument("--mu-v", type=int, default=0,
+                    help="vertex shards of the serial grid (0: 2)")
     return _run(ap.parse_args(argv))
 
 
@@ -27,24 +32,36 @@ def _run(args) -> dict:
 
     g = make_graph(args.graph, args.setting, args.seed)
     print(f"graph n={g.n:,} m={g.m_real:,}")
-    spec = RunSpec(num_registers=args.registers, seed=args.seed, model=args.model)
+    if args.backend == "serial":
+        mu_v, mu_s = (args.mu_v if args.mu_v > 0 else 2), 2
+    else:
+        mu_v = mu_s = 1
+    spec = RunSpec(num_registers=args.registers, seed=args.seed, model=args.model,
+                   backend=args.backend, mu_v=mu_v, mu_s=mu_s, partition=args.partition)
     t0 = time.time()
     report = run_im(g, args.k, spec, device=args.device)
     dt = time.time() - t0
     res = report.result
     st = res.stats
+    if report.partition is not None:
+        print(f"backend={report.backend} partition: {report.partition.stats().describe()}")
+    else:
+        print(f"backend={report.backend}")
     print(f"device={report.device}")
     print(f"difuser: {dt:.2f}s influence(est)={res.scores[-1]:.1f} "
           f"rebuilds={int(res.rebuilds.sum())}/{args.k}")
-    print(f"prep: {st['prep_s']:.3f}s; build: {st['build_s']:.3f}s "
+    if "prep_s" in st:
+        prep = f"{st['prep_s']:.3f}s"
+    else:   # the serial ring's host preparation, phase by phase
+        prep = " ".join(f"{key[:-2]} {st[key]:.3f}s" for key in
+                        ("sort_s", "sample_s", "plan_s", "buckets_s", "state_s"))
+    print(f"prep: {prep}; build: {st['build_s']:.3f}s "
           f"sweeps={res.propagate_iters}; "
           f"rounds: {st['rounds_s']:.3f}s cascade sweeps={st['cascade_sweeps']} "
           f"rebuild sweeps={st['rebuild_sweeps']}")
-    return dict(device=report.device, time_s=dt,
-                n=g.n, m=g.m_real, seeds=res.seeds.tolist(),
-                difuser_score=float(res.scores[-1]),
-                rebuilds=int(res.rebuilds.sum()),
-                propagate_iters=res.propagate_iters, **st)
+    return dict(backend=report.backend, device=report.device, time_s=dt, n=g.n,
+                m=g.m_real, seeds=res.seeds.tolist(), difuser_score=float(res.scores[-1]),
+                rebuilds=int(res.rebuilds.sum()), propagate_iters=res.propagate_iters, **st)
 
 
 if __name__ == "__main__":

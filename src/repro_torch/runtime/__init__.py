@@ -1,24 +1,34 @@
-"""Execution API of the port: ``RunSpec`` and ``run``.
+"""Execution API of the port: ``RunSpec``, the ``Backend`` registry and
+``run``.
 
     from repro_torch.runtime import RunSpec, run
     report = run(graph, 10, RunSpec(num_registers=512, model="ic"))
+    report = run(graph, 10, RunSpec(backend="serial", mu_v=2, mu_s=2,
+                                    partition="degree"))
 
-``run`` executes the single-device driver (the one backend the port has so
-far) on CUDA unless ``device="cpu"`` is passed.
+Two backends: ``single`` (the single-device driver) and ``serial`` (the 2-D
+ring schedule on one device). ``backend="auto"`` takes ``single`` for one
+shard and ``serial`` for a grid. Both run on CUDA unless ``device="cpu"`` is
+passed, and give the same seeds.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.runtime import single
-from repro_torch.runtime.single import RunReport
+from repro_torch.runtime import serial as _serial  # noqa: F401  (registers)
+from repro_torch.runtime import single as _single  # noqa: F401  (registers)
+from repro_torch.runtime.base import (Backend, BackendCapabilities, BackendUnavailable,
+                                      RunReport, get_backend, register_backend,
+                                      resolve_backend)
 from repro_torch.runtime.spec import RunSpec
 
 
 def run(g, k: int, spec: Optional[RunSpec] = None, *, x=None, device=None) -> RunReport:
-    """Run Alg. 4 on one device."""
+    """Resolve the backend for ``spec`` and run Alg. 4."""
     spec = spec if spec is not None else RunSpec()
-    return single.find_seeds(g, k, spec, x=x, device=device)
+    backend = resolve_backend(spec, g)
+    return backend.find_seeds(g, k, spec, x=x, device=device)
 
 
-__all__ = ["RunReport", "RunSpec", "run"]
+__all__ = ["Backend", "BackendCapabilities", "BackendUnavailable", "RunReport",
+           "RunSpec", "get_backend", "register_backend", "resolve_backend", "run"]

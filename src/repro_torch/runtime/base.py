@@ -1,0 +1,105 @@
+"""Backend protocol and registry: one execution contract, two strategies.
+
+Counterpart of the reference's ``runtime/base.py``. A ``Backend`` answers,
+for one (graph, ``RunSpec``) pair, whether it can run it (``supports``), the
+full Alg. 4 loop (``find_seeds``) and the build alone (``build_matrix``:
+fill + propagate to a fixpoint, in the canonical layout, ``int8[g.n_pad,
+len(x)]`` with rows in original-id order). Results are backend-invariant:
+the same graph and sketch setting give the same seeds and matrix on every
+backend.
+
+``resolve_backend`` implements ``backend="auto"``: ``single`` for one shard,
+``serial`` for a grid of several (the port has no mesh backend yet). An
+explicit name is honored and raises, with the reason, when that backend
+cannot run the spec.
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.difuser import InfluenceResult
+from repro_torch.graphs.structs import Graph
+from repro_torch.runtime.spec import RunSpec
+
+
+class BackendUnavailable(RuntimeError):
+    """The requested backend cannot run this spec."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendCapabilities:
+    name: str
+    distributed: bool        # shards work across a (mu_v, mu_s) grid
+    description: str = ""
+
+
+@dataclasses.dataclass
+class RunReport:
+    """A backend's ``find_seeds`` result with its provenance: the device it
+    ran on, the built ``Partition2D`` (``None`` on ``single``) and the wall
+    time including host preparation."""
+
+    result: InfluenceResult
+    backend: str
+    spec: RunSpec
+    device: str
+    partition: Optional[object] = None
+    wall_s: float = 0.0
+
+
+class Backend(abc.ABC):
+    name: str = "?"
+
+    @abc.abstractmethod
+    def capabilities(self) -> BackendCapabilities:
+        ...
+
+    def supports(self, g: Optional[Graph], spec: RunSpec) -> Tuple[bool, str]:
+        """Can this backend run ``spec``, and if not, why not."""
+        return True, ""
+
+    @abc.abstractmethod
+    def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
+                   x: Optional[np.ndarray] = None, device=None) -> RunReport:
+        """The full Alg. 4 loop; seeds are original vertex ids."""
+
+    @abc.abstractmethod
+    def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
+                     reg_offset: int = 0, normalized: bool = False, device=None):
+        """Fill + propagate to a fixpoint; returns ``(matrix, iters)`` with the
+        matrix in the canonical layout on the device. ``normalized=True``
+        promises ``g`` sorted by destination and ``x`` sorted already."""
+
+
+_BACKENDS: Dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend) -> Backend:
+    if backend.name in _BACKENDS:
+        raise ValueError(f"backend {backend.name!r} already registered")
+    _BACKENDS[backend.name] = backend
+    return backend
+
+
+def get_backend(name: str) -> Backend:
+    b = _BACKENDS.get(name)
+    if b is None:
+        raise KeyError(f"unknown backend {name!r}; registered: {sorted(_BACKENDS)} "
+                       f"(plus 'auto')")
+    return b
+
+
+def resolve_backend(spec: RunSpec, g: Optional[Graph] = None) -> Backend:
+    """``auto``: ``single`` for one shard, ``serial`` otherwise."""
+    name = spec.backend
+    if name == "auto":
+        name = "single" if spec.num_shards <= 1 else "serial"
+    b = get_backend(name)
+    ok, why = b.supports(g, spec)
+    if not ok:
+        raise BackendUnavailable(f"backend {name!r} cannot run this spec: {why}")
+    return b

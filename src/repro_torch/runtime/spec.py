@@ -1,4 +1,6 @@
-"""RunSpec: what to run. Its fields mirror ``core.difuser.DiFuserConfig``."""
+"""RunSpec: what to run and how. Its sketch fields mirror
+``core.difuser.DiFuserConfig``; the execution fields (``backend`` to
+``num_shards``) choose and shape the backend and change no result."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +13,7 @@ _SKETCH_FIELDS = tuple(f.name for f in dataclasses.fields(DiFuserConfig))
 
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
+    # sketch and diffusion setting (DiFuserConfig)
     num_registers: int = 1024
     seed: int = 0
     estimator: str = "hll"
@@ -19,6 +22,21 @@ class RunSpec:
     max_cascade_iters: int = 64
     sort_x: bool = True
     model: str = DEFAULT_MODEL
+    # execution strategy
+    backend: str = "auto"        # "auto" | "single" | "serial"
+    mu_v: int = 1                # vertex shards of the 2-D grid
+    mu_s: int = 1                # sample-space (sim) shards
+    partition: str = "block"     # vertex-assignment strategy (partition.plan)
+    pad_mode: str = "step"       # "step" | "global" bucket padding
+    fasst: bool = True           # FASST sample order (the serial ring always sorts)
+    local_sweeps: int = 0        # comm-free sweeps before each ring sweep
+    fuse_sweeps: bool = False    # run them as one fused_sweep launch per shard
+    lane_fill: int = 0           # register slab of the fused sweep (no effect here)
+
+    @property
+    def num_shards(self) -> int:
+        """The shard grid's size (1 = unsharded)."""
+        return max(self.mu_v, 1) * max(self.mu_s, 1)
 
     def difuser_config(self) -> DiFuserConfig:
         return DiFuserConfig(**{f: getattr(self, f) for f in _SKETCH_FIELDS})

@@ -50,8 +50,11 @@ def _graph():
 
 
 @pytest.mark.parametrize("entry", ["find_seeds", "build_sketch_matrix",
-                                   "find_seeds_warm", "run", "launcher"])
+                                   "find_seeds_warm", "run", "launcher", "run_serial",
+                                   "find_seeds_ring_serial", "build_matrix_ring_serial",
+                                   "sample_edge_sets", "launcher_serial"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    from repro_torch import partition
     from repro_torch.core import difuser
     from repro_torch.launch import im
     from repro_torch.runtime import RunSpec, run
@@ -66,19 +69,39 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             x=np.arange(32, dtype=np.uint32)),
         "run": lambda: run(g, 2, RunSpec(num_registers=32)),
         "launcher": lambda: im.run(["--graph", "rmat:6", "--k", "2", "--registers", "32"]),
+        "run_serial": lambda: run(g, 2, RunSpec(num_registers=32, mu_v=2, mu_s=2)),
+        "find_seeds_ring_serial": lambda: partition.find_seeds_ring_serial(g, 2, cfg),
+        "build_matrix_ring_serial": lambda: partition.build_matrix_ring_serial(g, cfg),
+        "sample_edge_sets": lambda: partition.sample_edge_sets(
+            g, np.arange(32, dtype=np.uint32), 2),
+        "launcher_serial": lambda: im.run(["--graph", "rmat:6", "--k", "2", "--registers",
+                                           "32", "--backend", "serial"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    from repro_torch.kernels import sketch_cardinality, sketch_fill
+    from repro_torch.kernels import (bucket_propagate, fused_sample, fused_sweep,
+                                     sketch_cardinality, sketch_fill)
+    from repro_torch.kernels.edges import group_rows
 
     m = torch.zeros((8, 32), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         sketch_fill.sketch_fill_cuda(m)
     with pytest.raises(ValueError, match="CUDA tensors"):
         sketch_cardinality.cardinality_stats_cuda(m)
+    e = torch.zeros(4, dtype=torch.int32)
+    rows = group_rows(e, e, e, e, e, 8)
+    x = torch.zeros(32, dtype=torch.int32)
+    for call in (lambda: bucket_propagate.bucket_propagate_cuda(m, m.clone(), rows, x,
+                                                                variant=0),
+                 lambda: bucket_propagate.bucket_cascade_cuda(m, m.clone(), rows, x,
+                                                              variant=0),
+                 lambda: fused_sweep.fused_sweep_cuda(m, rows, x, variant=0, num_sweeps=2),
+                 lambda: fused_sample.fused_sample_cuda(e, e, e, x, variant=0)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
 
 
 def test_dispatch_rejects_other_devices():

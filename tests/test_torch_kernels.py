@@ -1,11 +1,13 @@
-"""The four kernels' plain versions against the reference's
-``repro.kernels.ref`` (and, for fill and cardinality, their Pallas bodies in
-interpret mode), and the CUDA kernels against their plain versions on a
-CUDA device.
+"""The kernels' plain versions against the reference's ``repro.kernels.ref``
+(and, for fill, cardinality and fused sampling, their Pallas bodies in
+interpret mode) or, for the ring's bucket merges, the reference's jnp merges
+of ``repro.core.distributed``; and the CUDA kernels against their plain
+versions on a CUDA device.
 
 Inputs are made with numpy from a seed and handed to both packages. The
-reference's propagate and cascade Pallas bodies do not run on this jax
-(``pl.load`` is gone), so those two are held against ``repro.kernels.ref``.
+reference's propagate, cascade, fused-sweep and bucket Pallas bodies do not
+run on this jax (``pl.load`` is gone), so those are held against
+``repro.kernels.ref`` and the jnp merges.
 """
 import shutil
 
@@ -14,13 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.distributed import _bucket_sweep_cascade, _bucket_sweep_propagate
 from repro.core.sampling import fused_predicate, remix_interval_predicate
 from repro.kernels import ref
+from repro.kernels.fused_sample import fused_sample_pallas
 from repro.kernels.sketch_cardinality import cardinality_stats_pallas
 from repro.kernels.sketch_fill import sketch_fill_pallas
-from repro_torch.kernels import (cascade_step, counters, ops, sketch_cardinality,
-                                 sketch_fill, sketch_propagate)
-from repro_torch.kernels.edges import EdgeOperands
+from repro_torch.kernels import (bucket_propagate, cascade_step, counters, fused_sample,
+                                 fused_sweep, ops, sketch_cardinality, sketch_fill,
+                                 sketch_propagate)
+from repro_torch.kernels.edges import EdgeOperands, group_rows
 
 REF_PRED = {0: fused_predicate, 1: remix_interval_predicate}
 
@@ -119,17 +124,137 @@ def test_cascade_plain(n_pad, num_regs, num_edges, variant):
     assert bool(changed.item()) == bool((want != m).any())
 
 
+# ------------------------------------------- the serial ring's kernels ----
+
+# (n_loc, j_loc, slots): a prime slot count, an empty bucket, j_loc off
+# multiples of 32 and of 4
+BUCKETS = [(64, 128, 509), (72, 100, 251), (40, 36, 0), (136, 256, 1021), (33, 37, 97)]
+
+
+def _bucket(n_loc, j_loc, slots, seed):
+    """acc and block (VISITED rows in both), a bucket's slots (w, r, h, lo,
+    thr) as numpy, and x."""
+    rng = np.random.default_rng(seed)
+
+    def matrix():
+        m = rng.integers(-1, 33, size=(n_loc, j_loc)).astype(np.int8)
+        m[rng.random(n_loc) < 0.15] = -1
+        return m
+
+    def u32(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    acc, block = matrix(), matrix()
+    acc[2] = -1
+    w = rng.integers(0, n_loc, slots).astype(np.int32)
+    r = rng.integers(0, n_loc, slots).astype(np.int32)
+    thr = u32(slots) >> rng.integers(0, 6, slots).astype(np.uint32)
+    thr[rng.random(slots) < 0.1] = 0
+    return acc, block, (w, r, u32(slots), u32(slots), thr), u32(j_loc)
+
+
+def _rows(slots, n_loc, device="cpu"):
+    w, r, h, lo, thr = (torch.from_numpy(a.view(np.int32)).to(device) for a in slots)
+    return group_rows(w, r, h, lo, thr, n_loc)
+
+
+def _xt(x, device="cpu"):
+    return torch.from_numpy(x.view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS)
+def test_bucket_propagate_plain(n_loc, j_loc, slots, variant):
+    acc, block, sl, x = _bucket(n_loc, j_loc, slots, seed=8)
+    w, r, h, lo, thr = (jnp.asarray(a) for a in sl)
+    want = _bucket_sweep_propagate(jnp.asarray(acc), jnp.asarray(block), h, w, r, thr,
+                                   jnp.asarray(x), lo, REF_PRED[variant])
+    want = np.asarray(jnp.where(jnp.asarray(acc) == -1, jnp.asarray(acc), want))
+    got = torch.from_numpy(acc.copy())
+    changed = bucket_propagate.bucket_propagate_plain(
+        got, torch.from_numpy(block), _rows(sl, n_loc), _xt(x), variant=variant)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert bool(changed.item()) == bool((want != acc).any())
+    assert (got.numpy()[acc == -1] == -1).all()
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS)
+def test_bucket_cascade_plain(n_loc, j_loc, slots, variant):
+    acc, block, sl, x = _bucket(n_loc, j_loc, slots, seed=9)
+    w, r, h, lo, thr = (jnp.asarray(a) for a in sl)
+    vis = _bucket_sweep_cascade((jnp.asarray(acc) == -1).astype(jnp.uint8),
+                                jnp.asarray(block), h, w, r, thr, jnp.asarray(x), lo,
+                                REF_PRED[variant])
+    want = np.where(np.asarray(vis).astype(bool), np.int8(-1), acc)
+    got = torch.from_numpy(acc.copy())
+    changed = bucket_propagate.bucket_cascade_plain(
+        got, torch.from_numpy(block), _rows(sl, n_loc), _xt(x), variant=variant)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert bool(changed.item()) == bool((want != acc).any())
+
+
+@pytest.mark.parametrize("merge", ["bucket_propagate_plain", "bucket_cascade_plain"])
+def test_bucket_merge_refuses_shared_memory(merge):
+    acc, _, sl, x = _bucket(16, 32, 40, seed=1)
+    t = torch.from_numpy(acc)
+    with pytest.raises(ValueError, match="must not share memory"):
+        getattr(bucket_propagate, merge)(t, t, _rows(sl, 16), _xt(x), variant=0)
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("num_sweeps,lane_fill", [(0, 0), (1, 0), (2, 8), (3, 24), (2, 256)])
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS[:4])
+def test_fused_sweep_plain(n_loc, j_loc, slots, num_sweeps, lane_fill, variant):
+    m, _, sl, x = _bucket(n_loc, j_loc, slots, seed=10)
+    w, r, h, lo, thr = (jnp.asarray(a) for a in sl)
+    want = np.asarray(ref.fused_sweep_ref(jnp.asarray(m), w, r, thr, jnp.asarray(x), h, lo,
+                                          num_sweeps=num_sweeps, lane_fill=lane_fill,
+                                          predicate=REF_PRED[variant]))
+    mt = torch.from_numpy(m.copy())
+    got = fused_sweep.fused_sweep_plain(mt, _rows(sl, n_loc), _xt(x), variant=variant,
+                                        num_sweeps=num_sweeps, lane_fill=lane_fill)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(mt.numpy(), m)   # the input is left as it was
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("num_edges,num_samples", [(509, 128), (251, 100), (0, 64), (97, 36)])
+def test_fused_sample_plain(num_edges, num_samples, variant):
+    _, _, (_, _, h, lo, thr), _ = _bucket(8, 4, num_edges, seed=11)
+    x = _bucket(8, num_samples, 0, seed=12)[3]
+    zeros = jnp.zeros(num_edges, jnp.int32)
+    args = (zeros, zeros, jnp.asarray(thr), jnp.asarray(x), jnp.asarray(h), jnp.asarray(lo))
+    want = np.asarray(ref.fused_sample_ref(*args, predicate=REF_PRED[variant]))
+    got = fused_sample.fused_sample_plain(_xt(h), _xt(lo), _xt(thr), _xt(x), variant=variant)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (num_edges, num_samples)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if num_edges:
+        pal = fused_sample_pallas(*args, predicate=REF_PRED[variant], interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
+
+
 def test_cpu_dispatch_takes_plain_versions():
     m, edges, x = _case(64, 128, 509, seed=5)
     mt, et, xt = _port(m, edges, x, 64)
+    acc, block, sl, xb = _bucket(64, 128, 300, seed=6)
+    rows = _rows(sl, 64)
     counters.reset()
     ops.sketch_fill(mt)
     ops.cardinality_stats(mt)
     ops.propagate_sweep(mt, et, xt, variant=0)
     ops.cascade_sweep(mt, et, xt, variant=1)
+    ops.fused_sample(rows.h, rows.lo, rows.thr, _xt(xb), variant=0)
+    ops.fused_sweep(torch.from_numpy(acc), rows, _xt(xb), variant=1, num_sweeps=2)
+    ops.bucket_propagate(torch.from_numpy(acc), torch.from_numpy(block), rows, _xt(xb),
+                         variant=0)
+    ops.bucket_cascade(torch.from_numpy(acc), torch.from_numpy(block), rows, _xt(xb),
+                       variant=0)
     assert not counters.LAUNCHES
-    assert dict(counters.PLAIN_CALLS) == {"sketch_fill": 1, "sketch_cardinality": 1,
-                                          "sketch_propagate": 1, "cascade_step": 1}
+    assert dict(counters.PLAIN_CALLS) == {
+        "sketch_fill": 1, "sketch_cardinality": 1, "sketch_propagate": 1,
+        "cascade_step": 1, "fused_sample": 1, "fused_sweep": 1, "bucket_propagate": 1,
+        "bucket_cascade": 1}
 
 
 def test_edge_rows_group_each_row():
@@ -185,3 +310,31 @@ def test_kernels_match_plain_on_cuda(cuda_device, n_pad, num_regs, num_edges):
             b, fb = getattr(mod, name + "_plain")(mt, et, xt, variant=variant)
             assert torch.equal(a, b), (name, variant)
             assert bool(fa.item()) == bool(fb.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS)
+def test_ring_kernels_match_plain_on_cuda(cuda_device, n_loc, j_loc, slots):
+    acc, block, sl, x = _bucket(n_loc, j_loc, slots, seed=13)
+    acc_t, block_t = torch.from_numpy(acc).to(cuda_device), torch.from_numpy(block).to(cuda_device)
+    rows, xt = _rows(sl, n_loc, cuda_device), _xt(x, cuda_device)
+    if j_loc % 4:  # the kernels move whole 32-bit words of registers
+        with pytest.raises(ValueError, match="multiple of 4"):
+            bucket_propagate.bucket_propagate_cuda(acc_t, block_t, rows, xt, variant=0)
+        return
+    for variant in (0, 1):
+        for name in ("bucket_propagate", "bucket_cascade"):
+            a, b = acc_t.clone(), acc_t.clone()
+            fa = getattr(bucket_propagate, name + "_cuda")(a, block_t, rows, xt, variant=variant)
+            fb = getattr(bucket_propagate, name + "_plain")(b, block_t, rows, xt, variant=variant)
+            assert torch.equal(a, b), (name, variant)
+            assert bool(fa.item()) == bool(fb.item())
+        for num_sweeps in (1, 2, 3):
+            assert torch.equal(
+                fused_sweep.fused_sweep_cuda(acc_t, rows, xt, variant=variant,
+                                             num_sweeps=num_sweeps),
+                fused_sweep.fused_sweep_plain(acc_t, rows, xt, variant=variant,
+                                              num_sweeps=num_sweeps))
+        assert torch.equal(
+            fused_sample.fused_sample_cuda(rows.h, rows.lo, rows.thr, xt, variant=variant),
+            fused_sample.fused_sample_plain(rows.h, rows.lo, rows.thr, xt, variant=variant))

@@ -11,7 +11,8 @@ Phases (each raises on failure; none is caught):
    each, in parallel) and print what ``ptxas`` reports;
 2. each kernel against its plain PyTorch version on the card, on several
    shapes (both predicate forms, ``reg_offset != 0``, VISITED rows, a prime
-   edge count, register counts that are not multiples of 32; for the
+   edge count, register counts that are not multiples of 32; for the sweeps
+   also rows of 40,000 and of about ``CHUNK`` edges, which they split; for the
    serial ring's kernels a prime and an empty bucket, ``num_sweeps`` 1-3
    and several ``lane_fill``): equal int8 and uint8 outputs and bit-equal
    float32 statistics; a register count off multiples of 4 is refused;
@@ -145,11 +146,57 @@ def _random_case(n_pad, num_regs, num_edges, *, seed, device):
     return torch.from_numpy(m).to(device), edges, x
 
 
+def _hub_case(num_regs, *, seed, device):
+    """A graph whose sweeps split rows: sources 10-14 and destinations 20-24
+    with 40,000, CHUNK - 1, CHUNK, CHUNK + 1 and 3 CHUNK + 1 edges, their
+    other ends and 1000 random edges among rows 30-499, rows 500-519 empty;
+    the matrix and edge operands drawn as in ``_random_case``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.edges import CHUNK, EdgeOperands
+
+    n_pad = 520
+    rng = np.random.default_rng(seed)
+    m = rng.integers(-1, 33, size=(n_pad, num_regs)).astype(np.int8)
+    m[rng.random(n_pad) < 0.1] = -1
+    src, dst = [rng.integers(30, 500, 1000)], [rng.integers(30, 500, 1000)]
+    for i, deg in enumerate((40_000, CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK + 1)):
+        src += [np.full(deg, 10 + i), rng.integers(30, 500, deg)]
+        dst += [rng.integers(30, 500, deg), np.full(deg, 20 + i)]
+    src, dst = np.concatenate(src).astype(np.int32), np.concatenate(dst).astype(np.int32)
+    num_edges = src.shape[0]
+    u32 = lambda size: rng.integers(0, 1 << 32, size, dtype=np.uint64).astype(np.uint32)
+    h, lo = u32(num_edges), u32(num_edges)
+    thr = u32(num_edges) >> rng.integers(0, 8, num_edges).astype(np.uint32)
+    thr[rng.random(num_edges) < 0.05] = 0
+    order = np.lexsort((src, dst))
+    edges = EdgeOperands.from_numpy(src[order], dst[order], h[order], lo[order],
+                                    thr[order], n_pad, device)
+    x = torch.from_numpy(u32(num_regs).view(np.int32)).to(device)
+    return torch.from_numpy(m).to(device), edges, x
+
+
+def _check_sweeps(m, edges, x, what) -> None:
+    """Both sweep kernels against their plain versions, both predicates."""
+    import torch
+
+    from repro_torch.kernels import cascade_step, sketch_propagate
+
+    for variant in (0, 1):
+        for cuda_fn, plain_fn in (
+                (sketch_propagate.propagate_sweep_cuda, sketch_propagate.propagate_sweep_plain),
+                (cascade_step.cascade_sweep_cuda, cascade_step.cascade_sweep_plain)):
+            a, fa = cuda_fn(m, edges, x, variant=variant)
+            b, fb = plain_fn(m, edges, x, variant=variant)
+            check(torch.equal(a, b), (cuda_fn.__name__, what, variant))
+            check(bool(fa.item()) == bool(fb.item()), (cuda_fn.__name__, what, "changed"))
+
+
 def phase_kernels():
     import torch
 
-    from repro_torch.kernels import (cascade_step, sketch_cardinality,
-                                     sketch_fill, sketch_propagate)
+    from repro_torch.kernels import sketch_cardinality, sketch_fill
 
     cases = [  # (n_pad, J, E): prime E, J off multiples of 32
         (1024, 256, 10007), (2048, 1024, 30011), (520, 100, 4099),
@@ -163,17 +210,17 @@ def phase_kernels():
         a = sketch_cardinality.cardinality_stats_cuda(m)
         b = sketch_cardinality.cardinality_stats_plain(m)
         check(torch.equal(a, b), ("cardinality_stats", n_pad, num_regs))
-        for variant in (0, 1):
-            for cuda_fn, plain_fn in (
-                    (sketch_propagate.propagate_sweep_cuda,
-                     sketch_propagate.propagate_sweep_plain),
-                    (cascade_step.cascade_sweep_cuda, cascade_step.cascade_sweep_plain)):
-                a, fa = cuda_fn(m, edges, x, variant=variant)
-                b, fb = plain_fn(m, edges, x, variant=variant)
-                check(torch.equal(a, b), (cuda_fn.__name__, n_pad, num_regs, variant))
-                check(bool(fa.item()) == bool(fb.item()), (cuda_fn.__name__, "changed"))
+        _check_sweeps(m, edges, x, (n_pad, num_regs, num_edges))
         log(f"[2] n_pad={n_pad} J={num_regs} E={num_edges}: 4 kernels equal "
             f"their plain versions (both predicates, reg_offset 0 and 12345)")
+    for num_regs in (256, 1024):
+        m, edges, x = _hub_case(num_regs, seed=40 + num_regs, device="cuda")
+        _check_sweeps(m, edges, x, ("hub", num_regs))
+        work = [(r.work.num_items, r.work.num_split, r.work.num_partials)
+                for r in (edges.by_src, edges.by_dst)]
+        log(f"[2] hub rows J={num_regs} E={edges.num_edges} (work items, split rows, "
+            f"partials: by source {work[0]}, by destination {work[1]}): both sweeps equal "
+            f"their plain versions (both predicates)")
     m, _, _ = _random_case(64, 37, 101, seed=99, device="cuda")
     try:
         sketch_fill.sketch_fill_cuda(m)
@@ -594,6 +641,7 @@ def phase_timings(full: dict) -> list:
     from repro_torch.diffusion import resolve
     from repro_torch.kernels import (cascade_step, sketch_cardinality, sketch_fill,
                                      sketch_propagate)
+    from repro_torch.kernels.edges import work_list
 
     cfg = DiFuserConfig(num_registers=FULL["registers"], model=FULL["model"])
     g, x = normalize_inputs(full_graph(), cfg)
@@ -643,10 +691,25 @@ def phase_timings(full: dict) -> list:
                          _time_ms(kern, reps=5), _time_ms(plain, reps=1), bnd))
     out_deg = torch.diff(edges.by_src.rowptr).max().item()
     in_deg = torch.diff(edges.by_dst.rowptr).max().item()
-    log(f"[5] longest row walk: out-degree {out_deg} (propagate), in-degree {in_deg} "
+    log(f"[5] longest row: out-degree {out_deg} (propagate), in-degree {in_deg} "
         f"(cascade)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for grouped in (edges.by_src, edges.by_dst):
+        work_list(grouped.rowptr)
+    torch.cuda.synchronize()
+    log(f"[5] both work lists built again in {(time.perf_counter() - t0) * 1e3:.3f} ms "
+        f"(host clock, part of the host prep)")
+    for name, grouped in (("propagate", edges.by_src), ("cascade", edges.by_dst)):
+        w = grouped.work
+        log(f"[5] {name} work list: {w.num_items} items, {w.num_split} split rows, "
+            f"{w.num_partials} partials, longest item "
+            f"{torch.diff(w.item_ptr).max().item()} edges")
     log(f"[5] shapes: n_pad={n_pad} J={num_regs} E={num_edges} "
         f"(cascade: {vis_pairs} (edge, register) pairs with a VISITED source)")
+    gather = num_edges * num_regs
+    log(f"[5] the sweeps' gathers (each edge's read row, E x J): {gather / 1e9:.3f} GB, "
+        f"{gather / MEM_BYTES_PER_S * 1e3:.4f} ms at the device memory rate")
     return rows
 
 

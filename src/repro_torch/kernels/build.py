@@ -29,13 +29,16 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _SWEEP = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+# m_in, out, partial, the work list (5), nbr, h, lo, thr, x, num_items,
+# num_split, num_regs, variant, changed, stream
+_ITEM_SWEEP = [_P] * 13 + [_I] * 4 + [_P, _P]
 #: kernel name -> (source ``csrc/<source>.cu``, C entry point, argument types)
 SIGNATURES = {
     "sketch_fill": ("sketch_fill", "repro_sketch_fill", [_P, _P, _I, _I, _U, _U, _P]),
     "sketch_cardinality": ("sketch_cardinality", "repro_cardinality_stats",
                            [_P, _P, _I, _I, _P]),
-    "sketch_propagate": ("sketch_propagate", "repro_propagate_sweep", _SWEEP),
-    "cascade_step": ("cascade_step", "repro_cascade_sweep", _SWEEP),
+    "sketch_propagate": ("sketch_propagate", "repro_propagate_sweep", _ITEM_SWEEP),
+    "cascade_step": ("cascade_step", "repro_cascade_sweep", _ITEM_SWEEP),
     "fused_sample": ("fused_sample", "repro_fused_sample",
                      [_P, _P, _P, _P, _P, _L, _I, _I, _P]),
     "fused_sweep": ("fused_sweep", "repro_fused_sweep",

@@ -3,8 +3,9 @@ edge (u, v) for register j and ``M[u, j]`` is VISITED, ``out[v, j] =
 VISITED``, starting from ``out = M``.
 
 ``cascade_sweep_cuda`` launches ``csrc/cascade_step.cu`` (one warp per
-destination row over the destination-ordered edge rows), which replaces the
-Pallas kernel ``src/repro/kernels/cascade_step.py`` (``cascade_sweep_pallas``).
+work item of at most ``edges.CHUNK`` edges of a destination row, then a merge
+of the split rows' partials), which replaces the Pallas kernel
+``src/repro/kernels/cascade_step.py`` (``cascade_sweep_pallas``).
 ``cascade_sweep_plain`` is its plain PyTorch version. Both return
 ``(out, changed)`` as the propagate sweep does.
 """
@@ -14,8 +15,8 @@ import torch
 
 from repro_torch.core.sampling import PREDICATES, as_u32
 from repro_torch.core.sketch import VISITED
-from repro_torch.kernels import build, counters
-from repro_torch.kernels.common import PLAIN_STEP, check_cuda, check_sweep, stream
+from repro_torch.kernels import counters
+from repro_torch.kernels.common import PLAIN_STEP, check_sweep, launch_item_sweep
 from repro_torch.kernels.edges import EdgeOperands
 
 NAME = "cascade_step"
@@ -24,15 +25,7 @@ NAME = "cascade_step"
 def cascade_sweep_cuda(m: torch.Tensor, edges: EdgeOperands, x: torch.Tensor, *,
                        variant: int):
     check_sweep(m, edges, x)
-    dev = check_cuda(m)
-    rows = edges.by_dst
-    out = torch.empty_like(m)
-    changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.load(NAME)
-    build.check(NAME, fn(m.data_ptr(), out.data_ptr(), rows.rowptr.data_ptr(),
-                         rows.nbr.data_ptr(), rows.h.data_ptr(), rows.lo.data_ptr(),
-                         rows.thr.data_ptr(), x.data_ptr(), m.shape[0], m.shape[1],
-                         int(variant), changed.data_ptr(), stream(dev)))
+    out, changed = launch_item_sweep(NAME, m, edges.by_dst, x, variant)
     counters.LAUNCHES[NAME] += 1
     return out, changed
 

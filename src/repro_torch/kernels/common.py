@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.edges import EdgeOperands, EdgeRows
 
 #: elements of (edge, register) or (row, register) work per step of a plain
@@ -60,6 +61,30 @@ def check_rows(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor) -> None:
         raise ValueError("row operands must be contiguous int32 tensors")
     if any(t.device != m.device for t in (x, *tensors)):
         raise ValueError(f"m, x and rows must share a device, m is on {m.device}")
+
+
+def launch_item_sweep(name: str, m: torch.Tensor, rows: EdgeRows, x: torch.Tensor,
+                      variant: int):
+    """Launch the work-item sweep kernel ``name`` (``sketch_propagate`` or
+    ``cascade_step``) over ``rows`` and their work list. Returns ``(out,
+    changed)``; the split rows' partials live in a scratch of
+    ``num_partials x J`` bytes for the length of the call."""
+    dev = check_cuda(m)
+    work = rows.work
+    if work is None:
+        raise ValueError("the sweep kernels take rows with a work list (edges.with_work)")
+    out = torch.empty_like(m)
+    partial = torch.empty((work.num_partials, m.shape[1]), dtype=torch.int8, device=dev)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = build.load(name)
+    build.check(name, fn(m.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                         work.item_ptr.data_ptr(), work.item_row.data_ptr(),
+                         work.item_slot.data_ptr(), work.split_row.data_ptr(),
+                         work.split_ptr.data_ptr(), rows.nbr.data_ptr(), rows.h.data_ptr(),
+                         rows.lo.data_ptr(), rows.thr.data_ptr(), x.data_ptr(),
+                         work.num_items, work.num_split, m.shape[1], int(variant),
+                         changed.data_ptr(), stream(dev)))
+    return out, changed
 
 
 def stream(device: torch.device) -> int:

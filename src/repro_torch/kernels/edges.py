@@ -1,11 +1,18 @@
 """Edge operands on the device, in the two orders the sweeps need.
 
 The serving order (``core.difuser.normalize_inputs``) sorts edges by
-destination. The cascade sweep writes destination rows, so that order gives
-each row one owner. The propagate sweep writes source rows, and CUDA has no
-8-bit atomic max, so it gets a source-ordered copy. Both are made once per
-build, on the operands' device, as compressed rows: ``rowptr[r]:rowptr[r+1]``
-are row r's edges, ``nbr`` the other endpoint of each.
+destination. The cascade sweep writes destination rows and the propagate
+sweep source rows; CUDA has no 8-bit atomic max, so each sweep gets its edges
+grouped by the row it writes. Both orders are made once per build, on the
+operands' device, as compressed rows: ``rowptr[r]:rowptr[r+1]`` are row r's
+edges, ``nbr`` the other endpoint of each.
+
+R-MAT rows are skewed (at rmat:20 one row has about 40,000 edges, half of
+all rows none), so the sweep kernels do not take a row as their unit of work
+but an item of the ``WorkList`` (``work_list``): a row of at most ``CHUNK``
+edges is one item, a longer row is cut into items of ``CHUNK`` edges whose
+partial results a second pass merges. No item is longer than ``CHUNK``, so no
+row sets the length of a sweep.
 
 ``h``, ``lo``, ``thr`` (and ``x``) are uint32 values stored as int32 bit
 patterns, which every PyTorch indexing operation supports; the kernels read
@@ -14,20 +21,56 @@ them as ``uint32_t`` and the plain versions through ``core.sampling.as_u32``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 
+#: the most edges of one work item; a longer row is split
+CHUNK = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkList:
+    """The edges of grouped rows cut into items of at most ``CHUNK`` edges.
+
+    Items follow the rows in order and cover the edges in order: item i is
+    the edges ``item_ptr[i]:item_ptr[i+1]`` of row ``item_row[i]``. A row of
+    at most ``CHUNK`` edges, an empty row too, is one item; a row of ``d``
+    edges above that is ``ceil(d / CHUNK)`` items. ``item_slot[i]`` is -1 for
+    an item that is its whole row, else the item's own partial slot. The
+    split rows are ``split_row``; split row k owns the consecutive slots
+    ``split_ptr[k]:split_ptr[k+1]``.
+    """
+
+    item_ptr: torch.Tensor   # int32[num_items + 1]
+    item_row: torch.Tensor   # int32[num_items]
+    item_slot: torch.Tensor  # int32[num_items]
+    split_row: torch.Tensor  # int32[num_split]
+    split_ptr: torch.Tensor  # int32[num_split + 1]
+    num_partials: int
+
+    @property
+    def num_items(self) -> int:
+        return int(self.item_row.shape[0])
+
+    @property
+    def num_split(self) -> int:
+        return int(self.split_row.shape[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class EdgeRows:
-    """Edges grouped by the row a sweep writes."""
+    """Edges grouped by the row a sweep writes, with their work list where
+    a sweep kernel takes it (``with_work``)."""
 
     rowptr: torch.Tensor  # int32[n_pad + 1]
     nbr: torch.Tensor     # int32[E], the row each edge reads
     h: torch.Tensor       # int32[E] (uint32 bits)
     lo: torch.Tensor
     thr: torch.Tensor
+    work: Optional[WorkList] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,8 +109,8 @@ class EdgeOperands:
             raise ValueError("edge count must stay below 2^31 (int32 row pointers)")
         h, lo, thr = bits(h), bits(lo), bits(thr)
         return EdgeOperands(n_pad=int(n_pad), src=src, dst=dst, h=h, lo=lo, thr=thr,
-                            by_src=group_rows(src, dst, h, lo, thr, n_pad),
-                            by_dst=group_rows(dst, src, h, lo, thr, n_pad))
+                            by_src=with_work(group_rows(src, dst, h, lo, thr, n_pad)),
+                            by_dst=with_work(group_rows(dst, src, h, lo, thr, n_pad)))
 
 
 def group_rows(key, nbr, h, lo, thr, n_rows: int) -> EdgeRows:
@@ -80,6 +123,38 @@ def group_rows(key, nbr, h, lo, thr, n_rows: int) -> EdgeRows:
     return EdgeRows(rowptr=rowptr, nbr=nbr[order].contiguous(),
                     h=h[order].contiguous(), lo=lo[order].contiguous(),
                     thr=thr[order].contiguous())
+
+
+def work_list(rowptr: torch.Tensor) -> WorkList:
+    """Cut the rows of ``rowptr`` into items of at most ``CHUNK`` edges, on
+    ``rowptr``'s device (see ``WorkList``)."""
+    dev = rowptr.device
+    n_rows = rowptr.shape[0] - 1
+    ptr = rowptr.to(torch.int64)
+    pieces = torch.clamp((torch.diff(ptr) + CHUNK - 1) // CHUNK, min=1)
+    first = torch.cumsum(pieces, 0) - pieces      # each row's first item
+    item_row = torch.repeat_interleave(torch.arange(n_rows, device=dev), pieces)
+    num_items = item_row.shape[0]
+    if num_items >= 2**31:
+        raise ValueError(f"{num_items} work items: more than int32 indexing takes")
+    piece = torch.arange(num_items, device=dev) - first[item_row]
+    item_ptr = torch.empty(num_items + 1, dtype=torch.int32, device=dev)
+    item_ptr[:-1] = (ptr[item_row] + piece * CHUNK).to(torch.int32)
+    item_ptr[-1] = rowptr[-1]
+    split = pieces > 1
+    in_split = split[item_row]
+    item_slot = torch.where(in_split, torch.cumsum(in_split, 0) - 1, -1)
+    split_ptr = torch.zeros(int(split.sum().item()) + 1, dtype=torch.int32, device=dev)
+    split_ptr[1:] = torch.cumsum(pieces[split], 0).to(torch.int32)
+    return WorkList(item_ptr=item_ptr, item_row=item_row.to(torch.int32),
+                    item_slot=item_slot.to(torch.int32),
+                    split_row=torch.nonzero(split).flatten().to(torch.int32),
+                    split_ptr=split_ptr, num_partials=int(split_ptr[-1].item()))
+
+
+def with_work(rows: EdgeRows) -> EdgeRows:
+    """``rows`` with its work list."""
+    return dataclasses.replace(rows, work=work_list(rows.rowptr))
 
 
 def row_ids(rows: EdgeRows) -> torch.Tensor:

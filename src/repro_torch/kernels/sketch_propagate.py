@@ -3,8 +3,9 @@ edge (u, v) for register j, ``out[u, j] = max(out[u, j], M[v, j])``,
 starting from ``out = M``; VISITED entries of M stay VISITED.
 
 ``propagate_sweep_cuda`` launches ``csrc/sketch_propagate.cu`` (one warp per
-source row over the source-ordered edge rows), which replaces the Pallas
-kernel ``src/repro/kernels/sketch_propagate.py`` (``propagate_sweep_pallas``).
+work item of at most ``edges.CHUNK`` edges of a source row, then a merge of
+the split rows' partials), which replaces the Pallas kernel
+``src/repro/kernels/sketch_propagate.py`` (``propagate_sweep_pallas``).
 ``propagate_sweep_plain`` is its plain PyTorch version over the serving-order
 edges. Both return ``(out, changed)``: ``changed`` is a one-element tensor on
 the device, nonzero when ``out`` differs from ``M``.
@@ -15,8 +16,8 @@ import torch
 
 from repro_torch.core.sampling import PREDICATES, as_u32
 from repro_torch.core.sketch import VISITED
-from repro_torch.kernels import build, counters
-from repro_torch.kernels.common import PLAIN_STEP, check_cuda, check_sweep, stream
+from repro_torch.kernels import counters
+from repro_torch.kernels.common import PLAIN_STEP, check_sweep, launch_item_sweep
 from repro_torch.kernels.edges import EdgeOperands
 
 NAME = "sketch_propagate"
@@ -25,15 +26,7 @@ NAME = "sketch_propagate"
 def propagate_sweep_cuda(m: torch.Tensor, edges: EdgeOperands, x: torch.Tensor, *,
                          variant: int):
     check_sweep(m, edges, x)
-    dev = check_cuda(m)
-    rows = edges.by_src
-    out = torch.empty_like(m)
-    changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.load(NAME)
-    build.check(NAME, fn(m.data_ptr(), out.data_ptr(), rows.rowptr.data_ptr(),
-                         rows.nbr.data_ptr(), rows.h.data_ptr(), rows.lo.data_ptr(),
-                         rows.thr.data_ptr(), x.data_ptr(), m.shape[0], m.shape[1],
-                         int(variant), changed.data_ptr(), stream(dev)))
+    out, changed = launch_item_sweep(NAME, m, edges.by_src, x, variant)
     counters.LAUNCHES[NAME] += 1
     return out, changed
 

@@ -25,7 +25,7 @@ from repro.kernels.sketch_fill import sketch_fill_pallas
 from repro_torch.kernels import (bucket_propagate, cascade_step, counters, fused_sample,
                                  fused_sweep, ops, sketch_cardinality, sketch_fill,
                                  sketch_propagate)
-from repro_torch.kernels.edges import EdgeOperands, group_rows
+from repro_torch.kernels.edges import CHUNK, EdgeOperands, group_rows
 
 REF_PRED = {0: fused_predicate, 1: remix_interval_predicate}
 
@@ -40,6 +40,34 @@ def _case(n_pad, num_regs, num_edges, seed):
     m[1] = -1
     src = rng.integers(0, n_pad, num_edges).astype(np.int32)
     dst = rng.integers(0, n_pad, num_edges).astype(np.int32)
+
+    def u32(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    h, lo = u32(num_edges), u32(num_edges)
+    thr = u32(num_edges) >> rng.integers(0, 6, num_edges).astype(np.uint32)
+    thr[rng.random(num_edges) < 0.1] = 0
+    order = np.lexsort((src, dst))
+    return m, (src[order], dst[order], h[order], lo[order], thr[order]), u32(num_regs)
+
+
+#: rows of these many edges in a hub case: a star, and rows around CHUNK
+HUB_DEGREES = (40_000, CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK + 1)
+
+
+def _hub_case(num_regs, seed, n_pad=520):
+    """Like ``_case``, on a graph whose sweeps split rows: sources 10-14 and
+    destinations 20-24 with ``HUB_DEGREES`` edges, their other ends and 1000
+    random edges among rows 30-499, and rows 500 and up without edges."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(-1, 33, size=(n_pad, num_regs)).astype(np.int8)
+    m[rng.random(n_pad) < 0.15] = -1
+    src, dst = [rng.integers(30, 500, 1000)], [rng.integers(30, 500, 1000)]
+    for i, deg in enumerate(HUB_DEGREES):
+        src += [np.full(deg, 10 + i), rng.integers(30, 500, deg)]
+        dst += [rng.integers(30, 500, deg), np.full(deg, 20 + i)]
+    src, dst = np.concatenate(src).astype(np.int32), np.concatenate(dst).astype(np.int32)
+    num_edges = src.shape[0]
 
     def u32(n):
         return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
@@ -270,6 +298,97 @@ def test_edge_rows_group_each_row():
             assert got == sorted(zip(other[sel].tolist(), e.h[sel].tolist()))
 
 
+# ------------------------------------------------- the sweeps' work list ----
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("order", ["by_src", "by_dst"])
+def test_work_list_cuts_rows_into_items(order):
+    _, edges, _ = _hub_case(32, seed=20)
+    e = EdgeOperands.from_numpy(*edges, 520, "cpu")
+    rows = getattr(e, order)
+    w = rows.work
+    rowptr, ptr = rows.rowptr.numpy(), w.item_ptr.numpy()
+    item_row, slot = w.item_row.numpy(), w.item_slot.numpy()
+    deg, size = np.diff(rowptr), np.diff(ptr)
+    # every edge in exactly one item: the items cover the edges in order
+    assert ptr[0] == 0 and ptr[-1] == e.num_edges and (size >= 0).all()
+    assert size.max() <= CHUNK
+    # each item within one row, the rows in order, every row at least once
+    assert (np.diff(item_row) >= 0).all()
+    assert (rowptr[item_row] <= ptr[:-1]).all() and (ptr[1:] <= rowptr[item_row + 1]).all()
+    pieces = np.bincount(item_row, minlength=520)
+    np.testing.assert_array_equal(pieces, np.maximum(1, -(-deg // CHUNK)))
+    hubs = (10, 11, 12, 13, 14) if order == "by_src" else (20, 21, 22, 23, 24)
+    assert [int(deg[r]) for r in hubs] == list(HUB_DEGREES)
+    assert [int(pieces[r]) for r in hubs] == [157, 1, 1, 2, 4]
+    assert (deg[500:] == 0).all() and (pieces[500:] == 1).all()
+    # an unsplit row writes itself; a split row's items own distinct slots,
+    # the consecutive range split_ptr gives the row
+    split = np.flatnonzero(deg > CHUNK)
+    np.testing.assert_array_equal(w.split_row.numpy(), split)
+    assert (slot[np.isin(item_row, split, invert=True)] == -1).all()
+    sp = w.split_ptr.numpy()
+    assert w.num_partials == sp[-1] == (slot >= 0).sum()
+    for k, r in enumerate(split):
+        np.testing.assert_array_equal(slot[item_row == r], np.arange(sp[k], sp[k + 1]))
+
+
+def _emulate_items(m, e: EdgeOperands, x, variant, cascade):
+    """The sweep as the kernels compute it: each work item's result from its
+    own edges, written to its row or to its partial slot, then each split
+    row's partials merged by max (propagate) or OR (cascade)."""
+    rows = e.by_dst if cascade else e.by_src
+    w = rows.work
+    live = np.asarray(REF_PRED[variant](jnp.asarray(_u32(rows.h))[:, None],
+                                        jnp.asarray(_u32(rows.lo))[:, None],
+                                        jnp.asarray(_u32(rows.thr))[:, None],
+                                        jnp.asarray(x)[None, :]))
+    nbr, ptr = rows.nbr.numpy(), w.item_ptr.numpy()
+    vis = m == -1
+    out = m.copy()
+    partial = np.zeros((w.num_partials, m.shape[1]), np.int8)
+    for i, (r, slot) in enumerate(zip(w.item_row.numpy(), w.item_slot.numpy())):
+        a, b = ptr[i], ptr[i + 1]
+        if cascade:
+            acc = vis[r] | (live[a:b] & vis[nbr[a:b]]).any(0)
+        else:
+            acc = np.maximum(m[r], np.where(live[a:b], m[nbr[a:b]], -1).max(0, initial=-1))
+        if slot >= 0:
+            partial[slot] = acc
+        elif cascade:
+            out[r] = np.where(acc, -1, m[r])
+        else:
+            out[r] = np.where(vis[r], -1, acc)
+    sp = w.split_ptr.numpy()
+    for k, r in enumerate(w.split_row.numpy()):
+        parts = partial[sp[k]:sp[k + 1]]
+        if cascade:
+            out[r] = np.where(parts.astype(bool).any(0), -1, m[r])
+        else:
+            out[r] = np.where(vis[r], -1, parts.max(0))
+    return out
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("sweep", ["propagate", "cascade"])
+def test_work_items_merge_to_the_sweep(sweep, variant):
+    m, edges, x = _hub_case(64, seed=21)
+    cascade = sweep == "cascade"
+    mt, et, xt = _port(m, edges, x, 520)
+    got = _emulate_items(m, et, x, variant, cascade)
+    ref_fn = ref.cascade_sweep_ref if cascade else ref.propagate_sweep_ref
+    np.testing.assert_array_equal(got, _ref_sweep(ref_fn, m, edges, x, variant))
+    plain = (cascade_step.cascade_sweep_plain if cascade
+             else sketch_propagate.propagate_sweep_plain)
+    want, changed = plain(mt, et, xt, variant=variant)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert bool(changed.item()) == bool((got != m).any())
+    assert (got[m == -1] == -1).all()
+
+
 # ------------------------------------------------ on a CUDA device only ----
 
 @pytest.fixture
@@ -286,10 +405,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# hub cases (``_hub_case``, num_edges None): the sweeps split rows
+HUB_CASES = [(520, 256, None), (520, 1024, None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES)
+@pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES + HUB_CASES)
 def test_kernels_match_plain_on_cuda(cuda_device, n_pad, num_regs, num_edges):
-    m, edges, x = _case(n_pad, num_regs, num_edges, seed=7)
+    if num_edges is None:
+        m, edges, x = _hub_case(num_regs, seed=7, n_pad=n_pad)
+    else:
+        m, edges, x = _case(n_pad, num_regs, num_edges, seed=7)
     mt, et, xt = _port(m, edges, x, n_pad, cuda_device)
     if num_regs % 4:  # the kernels move whole 32-bit words of registers
         for call in (lambda: sketch_fill.sketch_fill_cuda(mt),

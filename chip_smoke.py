@@ -13,9 +13,12 @@ Phases (each raises on failure; none is caught):
    shapes (both predicate forms, ``reg_offset != 0``, VISITED rows, a prime
    edge count, register counts that are not multiples of 32; for the sweeps
    also rows of 40,000 and of about ``CHUNK`` edges, which they split; for the
-   serial ring's kernels a prime and an empty bucket, ``num_sweeps`` 1-3
-   and several ``lane_fill``): equal int8 and uint8 outputs and bit-equal
-   float32 statistics; a register count off multiples of 4 is refused;
+   serial ring's kernels a prime and an empty bucket, hub buckets with write
+   rows of 13,657, 257, 256 and 0 slots at ``j_loc`` 512 and 100 (the 16-
+   and the 4-byte path), the in-place cascade merge with a partial scratch
+   passed in, ``num_sweeps`` 1-3 and several ``lane_fill``): equal int8 and
+   uint8 outputs, equal changed flags and bit-equal float32 statistics; a
+   register count off multiples of 4 is refused;
 3. the kernel path against the plain path on the card at rmat:14, J=256,
    K=8, for wc, ic:0.1, lt and dic:1.0 (for the plain path this script puts
    the plain versions in place of ``kernels.ops``' functions): seeds,
@@ -30,7 +33,9 @@ Phases (each raises on failure; none is caught):
    (grid 2x2, ``degree``, fused prologue, ``lane_fill`` 256), counters as in
    phase 4; its seeds must equal phase 4's;
 5. each kernel at phase 4's and 4b's shapes: time (CUDA events), its plain
-   version's time, the largest difference between the two, and the bound.
+   version's time, the largest difference between the two, and the bound;
+   for the sweeps and the serial ring's merges also their work lists
+   (items, split rows, partials, longest item) and the bytes they gather.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
 contract line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -232,13 +237,15 @@ def phase_kernels():
     torch.cuda.synchronize()
 
 
-def _random_bucket(n_loc, j_loc, num_slots, *, seed, device):
+def _random_bucket(n_loc, j_loc, num_slots, *, seed, device, hubs=()):
     """acc and block (VISITED rows in both), the slots of one bucket grouped
-    by write row, and x."""
+    by write row with their work list, and x. ``hubs``: write rows 10, 11,
+    ... get these many slots on top of ``num_slots`` random ones among rows
+    30 to n_loc - 41, and the last 40 rows none."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.edges import group_rows
+    from repro_torch.kernels.edges import group_rows, with_work
 
     rng = np.random.default_rng(seed)
 
@@ -249,11 +256,22 @@ def _random_bucket(n_loc, j_loc, num_slots, *, seed, device):
 
     u32 = lambda size: rng.integers(0, 1 << 32, size, dtype=np.uint64).astype(np.uint32)
     w = rng.integers(0, n_loc, num_slots).astype(np.int32)
+    if hubs:   # write rows 10, 11, ... with these many slots; rows from n_loc - 40 empty
+        w = np.concatenate([rng.integers(30, n_loc - 40, num_slots)]
+                           + [np.full(d, 10 + i) for i, d in enumerate(hubs)])
+        num_slots = w.shape[0]
+    w = w.astype(np.int32)
     r = rng.integers(0, n_loc, num_slots).astype(np.int32)
     thr = u32(num_slots) >> rng.integers(1, 8, num_slots).astype(np.uint32)
-    rows = group_rows(*(torch.from_numpy(a.view(np.int32)).to(device)
-                        for a in (w, r, u32(num_slots), u32(num_slots), thr)), n_loc)
+    operands = (w, r, u32(num_slots), u32(num_slots), thr)
+    rows = with_work(group_rows(*(torch.from_numpy(a.view(np.int32)).to(device)
+                                  for a in operands), n_loc))
     return matrix(), matrix(), rows, torch.from_numpy(u32(j_loc).view(np.int32)).to(device)
+
+
+#: write rows of the hub buckets: the longest row of phase 4b's buckets at
+#: rmat:20, rows just over and at CHUNK (256), and an empty row
+BUCKET_HUBS = (13_657, 257, 256, 0)
 
 
 def phase_ring_kernels():
@@ -263,18 +281,31 @@ def phase_ring_kernels():
     from repro_torch.kernels import bucket_propagate as bp
     from repro_torch.kernels import fused_sample, fused_sweep
 
-    cases = [(1000, 36, 4099), (777, 100, 0), (4096, 512, 30011), (520, 512, 1)]
-    for i, (n_loc, j_loc, slots) in enumerate(cases):
+    cases = [(1000, 36, 4099, ()), (777, 100, 0, ()), (4096, 512, 30011, ()),
+             (520, 512, 1, ()), (4096, 512, 30011, BUCKET_HUBS),
+             (4096, 100, 30011, BUCKET_HUBS)]
+    for i, (n_loc, j_loc, slots, hubs) in enumerate(cases):
         acc, block, rows, x = _random_bucket(n_loc, j_loc, slots, seed=10 + i,
-                                             device="cuda")
+                                             device="cuda", hubs=hubs)
+        # one scratch for every cascade merge, larger than the list needs, as
+        # the ring state keeps one at its buckets' largest num_partials
+        partial = torch.empty((rows.work.num_partials + 5, j_loc), dtype=torch.int8,
+                              device="cuda")
+        what = (n_loc, j_loc, rows.nbr.numel(), hubs)
         for variant in (0, 1):
             for name in ("bucket_propagate", "bucket_cascade"):
+                kw = dict(partial=partial) if name == "bucket_cascade" else {}
                 a, b = acc.clone(), acc.clone()
-                fa = getattr(bp, name + "_cuda")(a, block, rows, x, variant=variant)
+                fa = getattr(bp, name + "_cuda")(a, block, rows, x, variant=variant, **kw)
                 fb = getattr(bp, name + "_plain")(b, block, rows, x, variant=variant)
-                check(torch.equal(a, b), (name, n_loc, j_loc, slots, variant))
-                check(bool(fa.item()) == bool(fb.item()), (name, "changed"))
+                check(torch.equal(a, b), (name, what, variant))
+                check(bool(fa.item()) == bool(fb.item()), (name, what, variant, "changed"))
                 check(bool((a[acc == -1] == -1).all()), (name, "VISITED kept"))
+            # the cascade with the scratch the wrapper allocates; b is the
+            # plain cascade's result, the loop's last merge
+            a = acc.clone()
+            bp.bucket_cascade_cuda(a, block, rows, x, variant=variant)
+            check(torch.equal(a, b), ("bucket_cascade", what, variant, "own scratch"))
             for num_sweeps in (1, 2, 3):
                 for lane_fill in (0, 8, 24, 256):
                     a = fused_sweep.fused_sweep_cuda(acc, rows, x, variant=variant,
@@ -283,16 +314,20 @@ def phase_ring_kernels():
                     b = fused_sweep.fused_sweep_plain(acc, rows, x, variant=variant,
                                                       num_sweeps=num_sweeps,
                                                       lane_fill=lane_fill)
-                    check(torch.equal(a, b), ("fused_sweep", n_loc, j_loc, slots,
-                                              variant, num_sweeps, lane_fill))
+                    check(torch.equal(a, b), ("fused_sweep", what, variant, num_sweeps,
+                                              lane_fill))
             h, lo, thr = rows.h, rows.lo, rows.thr
             a = fused_sample.fused_sample_cuda(h, lo, thr, x, variant=variant)
             b = fused_sample.fused_sample_plain(h, lo, thr, x, variant=variant)
             check(a.dtype == torch.uint8 and torch.equal(a, b),
-                  ("fused_sample", slots, j_loc, variant))
-        log(f"[2] n_loc={n_loc} j_loc={j_loc} slots={slots}: bucket_propagate, "
-            f"bucket_cascade, fused_sweep (num_sweeps 1-3, lane_fill 0/8/24/256) and "
-            f"fused_sample equal their plain versions (both predicates)")
+                  ("fused_sample", what, variant))
+        w = rows.work
+        log(f"[2] n_loc={n_loc} j_loc={j_loc} slots={rows.nbr.numel()}"
+            f"{f' hub rows {list(hubs)}' if hubs else ''} (work items {w.num_items}, split "
+            f"rows {w.num_split}, partials {w.num_partials}): bucket_propagate, "
+            f"bucket_cascade (in place, scratch passed in and its own), fused_sweep "
+            f"(num_sweeps 1-3, lane_fill 0/8/24/256) and fused_sample equal their plain "
+            f"versions (both predicates, changed flags equal)")
 
 
 # --------------------------------------------------------------- phase 3 ----
@@ -501,6 +536,18 @@ def phase_ring_timings(serial: dict) -> list:
                          for step in grid for by_v in step for r in by_v)
                for name, grid in (("propagate", st.p_rows), ("cascade", st.c_rows))}
     log(f"[5] longest row over all buckets: {longest}")
+    buckets = [r for grid in (st.p_rows, st.c_rows) for step in grid for by_v in step
+               for r in by_v]
+    list_bytes = sum(t.numel() * t.element_size() for r in buckets
+                     for t in (r.work.item_ptr, r.work.item_row, r.work.item_slot,
+                               r.work.split_row, r.work.split_ptr))
+    log(f"[5] ring state: {len(buckets)} bucket work lists, {list_bytes / 1e9:.4f} GB; one "
+        f"partial scratch of {tuple(st.partial.shape)} ({st.partial.numel() / 1e6:.3f} MB) "
+        f"for every cascade merge")
+
+    def gathers(nbytes):
+        return (f"gathers {nbytes / 1e9:.4f} GB, {nbytes / MEM_BYTES_PER_S * 1e3:.4f} ms "
+                f"at the device memory rate")
 
     def bucket_bytes(rows):
         n_w = int((torch.diff(rows.rowptr) > 0).sum().item())
@@ -525,19 +572,22 @@ def phase_ring_timings(serial: dict) -> list:
         else:   # one VISITED test per (slot, word), the predicate on VISITED reads
             vis_pairs = int((block == -1).sum(1)[rows.nbr.long()].sum().item())
             ops = slots * j // REGS_PER_WORD + ops_per_pair * vis_pairs
+        # the cascade reuses the ring state's scratch, as its sweeps do
+        kw = dict(partial=st.partial) if name == "bucket_cascade" else {}
         kern = getattr(bp, name + "_cuda")
         plain = getattr(bp, name + "_plain")
         a, b = acc.clone(), acc.clone()
-        kern(a, block, rows, x, variant=variant)
+        kern(a, block, rows, x, variant=variant, **kw)
         plain(b, block, rows, x, variant=variant)
         err = _max_abs_err(a, b)
-        call = lambda f: (lambda t: f(t, block, rows, x, variant=variant))
-        ms = _time_in_place_ms(acc.clone, call(kern), reps=5)
+        call = lambda f, **k: (lambda t: f(t, block, rows, x, variant=variant, **k))
+        ms = _time_in_place_ms(acc.clone, call(kern, **kw), reps=5)
         plain_ms = _time_in_place_ms(acc.clone, call(plain), reps=1)
         log(f"[5] {name}: bucket (v={v}, s={s}, kk={kk}) of {slots} slots, longest row "
-            f"{int(torch.diff(rows.rowptr).max().item())} slots")
+            f"{int(torch.diff(rows.rowptr).max().item())} slots; {_work_line(rows)}"
+            f"{'' if kw else ' (not used by this kernel: a warp walks a whole row)'}")
         out.append(_row(name, "bucket_propagate.cu", replaces, launches.get(name, 0), err,
-                        ms, plain_ms, _bound(nbytes, ops)))
+                        ms, plain_ms, _bound(nbytes, ops), note=gathers(slots * j)))
 
     v, s = np.unravel_index(int(np.argmax(part.p_counts[:, :, 0])), part.p_counts.shape[:2])
     rows, x, m = st.p_rows[0][v][s], st.x[s], built[v, s]
@@ -546,15 +596,17 @@ def phase_ring_timings(serial: dict) -> list:
                 lane_fill=SERIAL["lane_fill"])
     err = _max_abs_err(fused_sweep.fused_sweep_cuda(m, rows, x, **fuse),
                        fused_sweep.fused_sweep_plain(m, rows, x, **fuse))
+    log(f"[5] fused_sweep: kk=0 bucket (v={v}, s={s}) of {slots} slots, "
+        f"{SERIAL['local_sweeps']} whole-card item sweeps (an item launch and a combine "
+        f"launch each); {_work_line(rows)}")
     out.append(_row(
         "fused_sweep", "fused_sweep.cu", "src/repro/kernels/fused_sweep.py:103",
         launches.get("fused_sweep", 0), err,
         _time_ms(lambda: fused_sweep.fused_sweep_cuda(m, rows, x, **fuse), reps=5),
         _time_ms(lambda: fused_sweep.fused_sweep_plain(m, rows, x, **fuse), reps=1),
         _bound(2 * part.n_loc * j + 16 * slots + 4 * (part.n_loc + 1) + 4 * j,
-               SERIAL["local_sweeps"] * ops_per_pair * slots * j)))
-    log(f"[5] fused_sweep: kk=0 bucket (v={v}, s={s}) of {slots} slots, "
-        f"{SERIAL['local_sweeps']} sweeps, {(j // 4 + 3) // 4} thread blocks")
+               SERIAL["local_sweeps"] * ops_per_pair * slots * j),
+        note=gathers(SERIAL["local_sweeps"] * slots * j)))
 
     ep = resolve(cfg.model).edge_params(g, seed=cfg.seed)
     sample = [torch.from_numpy(a[:SAMPLE_CHUNK].view(np.int32)).cuda()
@@ -614,10 +666,23 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _row(name, file, replaces, launches, err, ms, plain_ms, bound) -> dict:
+def _work_line(rows) -> str:
+    """A bucket's work list: items (those with slots), split rows, partials
+    and the longest item."""
+    import torch
+
+    w = rows.work
+    sizes = torch.diff(w.item_ptr)
+    return (f"work list: {w.num_items} items ({int((sizes > 0).sum().item())} with slots), "
+            f"{w.num_split} split rows, {w.num_partials} partials, longest item "
+            f"{int(sizes.max().item())} slots")
+
+
+def _row(name, file, replaces, launches, err, ms, plain_ms, bound, note="") -> dict:
     bound_ms, bound_by = bound
     log(f"[5] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"by {bound_by}), launches {launches}, max_abs_err {err}")
+        f"by {bound_by}{'; ' + note if note else ''}), launches {launches}, "
+        f"max_abs_err {err}")
     check(err == 0.0, f"{name} differs from its plain version at full size")
     return dict(name=name, route="cuda", source="src/repro_torch/kernels/csrc/" + file,
                 replaces=replaces, launches=int(launches), max_abs_err=err, ms=ms,

@@ -10,22 +10,33 @@
   (``core/distributed.py``), in the same source as a second entry point.
 
 A bucket's slots come as ``kernels.edges.EdgeRows`` grouped by write row
-(``nbr`` is the read row r), made once per partition. ``acc`` and ``block``
-are ``int8[n_loc, j_loc]`` and must not share memory: the merge reads
-``block`` while it writes ``acc``. Each function updates ``acc`` in place
-(the reference returns a new array; in place saves one block per merge)
-and returns an ``int32[1]`` flag on the device, nonzero when ``acc``
-changed. ``*_cuda`` launch the kernels, ``*_plain`` are their plain
-PyTorch versions.
+(``nbr`` is the read row r), made once per partition with their work list
+(``edges.with_work``). ``acc`` and ``block`` are ``int8[n_loc, j_loc]`` and
+must not share memory: the merge reads ``block`` while it writes ``acc``.
+Each function updates ``acc`` in place (the reference returns a new array;
+in place saves one block per merge) and returns an ``int32[1]`` flag on the
+device, nonzero when ``acc`` changed. ``*_cuda`` launch the kernels,
+``*_plain`` are their plain PyTorch versions.
+
+The cascade kernel walks the bucket's work list (one warp an item of at
+most ``edges.CHUNK`` slots, an item without slots returning at once) and
+keeps the split rows' partials in ``partial``, a scratch of at least
+``num_partials x j_loc`` bytes that the caller may pass in to reuse across
+launches (the serial ring allocates one for all its buckets); without it
+the wrapper allocates one. The plain versions ignore it. The propagate
+kernel still gives one warp each write row and ignores the list.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.core.sampling import PREDICATES, as_u32
 from repro_torch.core.sketch import VISITED
 from repro_torch.kernels import build, counters
-from repro_torch.kernels.common import PLAIN_STEP, check_cuda, check_rows, stream
+from repro_torch.kernels.common import (PLAIN_STEP, check_cuda, check_partial, check_rows,
+                                        item_operands, partial_scratch, stream, work_of)
 from repro_torch.kernels.edges import EdgeRows, row_ids
 
 NAME = "bucket_propagate"
@@ -44,26 +55,38 @@ def _check(acc: torch.Tensor, block: torch.Tensor, rows: EdgeRows, x: torch.Tens
                          "while it writes acc)")
 
 
-def _launch(name: str, acc, block, rows: EdgeRows, x, variant: int) -> torch.Tensor:
+def bucket_propagate_cuda(acc, block, rows: EdgeRows, x, *, variant: int) -> torch.Tensor:
     _check(acc, block, rows, x)
     dev = check_cuda(acc)
     check_cuda(block)
     changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.load(name)
-    build.check(name, fn(acc.data_ptr(), block.data_ptr(), rows.rowptr.data_ptr(),
+    fn = build.load(NAME)
+    build.check(NAME, fn(acc.data_ptr(), block.data_ptr(), rows.rowptr.data_ptr(),
                          rows.nbr.data_ptr(), rows.h.data_ptr(), rows.lo.data_ptr(),
                          rows.thr.data_ptr(), x.data_ptr(), acc.shape[0], acc.shape[1],
                          int(variant), changed.data_ptr(), stream(dev)))
-    counters.LAUNCHES[name] += 1
+    counters.LAUNCHES[NAME] += 1
     return changed
 
 
-def bucket_propagate_cuda(acc, block, rows: EdgeRows, x, *, variant: int) -> torch.Tensor:
-    return _launch(NAME, acc, block, rows, x, variant)
-
-
-def bucket_cascade_cuda(acc, block, rows: EdgeRows, x, *, variant: int) -> torch.Tensor:
-    return _launch(NAME_CASCADE, acc, block, rows, x, variant)
+def bucket_cascade_cuda(acc, block, rows: EdgeRows, x, *, variant: int,
+                        partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _check(acc, block, rows, x)
+    dev = check_cuda(acc)
+    check_cuda(block)
+    work = work_of(rows)
+    if partial is None:
+        partial = partial_scratch(work, acc.shape[1], dev)
+    else:
+        check_partial(partial, work, acc, block)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = build.load(NAME_CASCADE)
+    build.check(NAME_CASCADE, fn(acc.data_ptr(), block.data_ptr(), partial.data_ptr(),
+                                 *item_operands(rows, x), work.num_items, work.num_split,
+                                 acc.shape[1], int(variant), changed.data_ptr(),
+                                 stream(dev)))
+    counters.LAUNCHES[NAME_CASCADE] += 1
+    return changed
 
 
 def _slot_chunks(rows: EdgeRows, x, variant: int, num_regs: int):
@@ -98,7 +121,8 @@ def bucket_propagate_plain(acc, block, rows: EdgeRows, x, *, variant: int) -> to
     return merge_propagate_plain(acc, block, rows, x, variant)
 
 
-def bucket_cascade_plain(acc, block, rows: EdgeRows, x, *, variant: int) -> torch.Tensor:
+def bucket_cascade_plain(acc, block, rows: EdgeRows, x, *, variant: int,
+                         partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check(acc, block, rows, x)
     counters.PLAIN_CALLS[NAME_CASCADE] += 1
     vis = (acc == VISITED).to(torch.int32)

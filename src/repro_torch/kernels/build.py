@@ -1,16 +1,17 @@
 """Build and load the port's CUDA kernels (plain C interface, ctypes).
 
-Each ``csrc/<source>.cu`` compiles on its own, with ``common.cuh``, into
-``build/repro_torch/<source>-<hash>.so`` under the repository root::
+Each ``csrc/<source>.cu`` compiles on its own, with the headers
+``csrc/*.cuh`` it includes, into ``build/repro_torch/<source>-<hash>.so``
+under the repository root::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
-``<hash>`` covers the sources and the flags, so a stale library is never
-loaded. Nothing is built when the package is imported: ``load`` builds its
-library at first use, and ``build`` starts one ``nvcc`` for each missing
-library, all at once. ``nvcc`` is ``$CUDA_HOME/bin/nvcc`` or the one on
-``PATH``; without it, or when a build fails, these raise.
+``<hash>`` covers the source, every header and the flags, so a stale
+library is never loaded. Nothing is built when the package is imported:
+``load`` builds its library at first use, and ``build`` starts one ``nvcc``
+for each missing library, all at once. ``nvcc`` is ``$CUDA_HOME/bin/nvcc``
+or the one on ``PATH``; without it, or when a build fails, these raise.
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _SWEEP = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
-# m_in, out, partial, the work list (5), nbr, h, lo, thr, x, num_items,
-# num_split, num_regs, variant, changed, stream
+# two matrices (m_in and out, or acc and block), partial, the work list (5),
+# nbr, h, lo, thr, x, num_items, num_split, num_regs, variant, changed, stream
 _ITEM_SWEEP = [_P] * 13 + [_I] * 4 + [_P, _P]
 #: kernel name -> (source ``csrc/<source>.cu``, C entry point, argument types)
 SIGNATURES = {
@@ -41,10 +42,10 @@ SIGNATURES = {
     "cascade_step": ("cascade_step", "repro_cascade_sweep", _ITEM_SWEEP),
     "fused_sample": ("fused_sample", "repro_fused_sample",
                      [_P, _P, _P, _P, _P, _L, _I, _I, _P]),
-    "fused_sweep": ("fused_sweep", "repro_fused_sweep",
-                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # m_in, out, scratch, then _ITEM_SWEEP's from partial on, num_sweeps after variant
+    "fused_sweep": ("fused_sweep", "repro_fused_sweep", [_P] * 14 + [_I] * 5 + [_P, _P]),
     "bucket_propagate": ("bucket_propagate", "repro_bucket_propagate", _SWEEP),
-    "bucket_cascade": ("bucket_propagate", "repro_bucket_cascade", _SWEEP),
+    "bucket_cascade": ("bucket_propagate", "repro_bucket_cascade", _ITEM_SWEEP),
 }
 KERNELS = tuple(SIGNATURES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
@@ -64,7 +65,7 @@ def nvcc() -> str:
 
 def library_path(source: str) -> Path:
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in (CSRC / "common.cuh", CSRC / f"{source}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{source}.cu"):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"{source}-{digest.hexdigest()[:16]}.so"
 

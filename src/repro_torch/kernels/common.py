@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.edges import EdgeOperands, EdgeRows
+from repro_torch.kernels.edges import EdgeOperands, EdgeRows, WorkList
 
 #: elements of (edge, register) or (row, register) work per step of a plain
 #: version; bounds its int64 temporaries to a few hundred MiB
@@ -63,6 +63,46 @@ def check_rows(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor) -> None:
         raise ValueError(f"m, x and rows must share a device, m is on {m.device}")
 
 
+def work_of(rows: EdgeRows) -> WorkList:
+    """``rows``' work list, which the work-item kernels take."""
+    if rows.work is None:
+        raise ValueError("the work-item kernels take rows with a work list (edges.with_work)")
+    if rows.work.item_ptr.device != rows.rowptr.device:
+        raise ValueError(f"the work list is on {rows.work.item_ptr.device}, the rows on "
+                         f"{rows.rowptr.device}")
+    return rows.work
+
+
+def partial_scratch(work: WorkList, num_regs: int, device) -> torch.Tensor:
+    """The split rows' partial rows of one work-item sweep: ``num_partials x
+    num_regs`` bytes."""
+    return torch.empty((work.num_partials, num_regs), dtype=torch.int8, device=device)
+
+
+def check_partial(partial: torch.Tensor, work: WorkList, m: torch.Tensor, *others) -> None:
+    """A partial scratch passed in: int8, contiguous, ``num_regs`` wide, at
+    least ``num_partials`` rows, on ``m``'s device and sharing memory with
+    none of ``m`` and ``others``."""
+    if (partial.dtype != torch.int8 or partial.dim() != 2 or not partial.is_contiguous()
+            or partial.shape[1] != m.shape[1] or partial.shape[0] < work.num_partials):
+        raise ValueError(f"partial must be a contiguous int8[>= {work.num_partials}, "
+                         f"{m.shape[1]}] tensor, got {partial.dtype} {tuple(partial.shape)}")
+    if partial.device != m.device:
+        raise ValueError(f"partial is on {partial.device}, the matrix on {m.device}")
+    ptr = partial.untyped_storage().data_ptr()
+    if partial.numel() and any(ptr == t.untyped_storage().data_ptr() for t in (m, *others)):
+        raise ValueError("partial must not share memory with the matrices")
+
+
+def item_operands(rows: EdgeRows, x: torch.Tensor) -> tuple:
+    """Pointers of a work-item kernel's list and edge operands: the work
+    list (5), ``nbr``, ``h``, ``lo``, ``thr`` and ``x``."""
+    work = work_of(rows)
+    return tuple(t.data_ptr() for t in (
+        work.item_ptr, work.item_row, work.item_slot, work.split_row, work.split_ptr,
+        rows.nbr, rows.h, rows.lo, rows.thr, x))
+
+
 def launch_item_sweep(name: str, m: torch.Tensor, rows: EdgeRows, x: torch.Tensor,
                       variant: int):
     """Launch the work-item sweep kernel ``name`` (``sketch_propagate`` or
@@ -70,20 +110,14 @@ def launch_item_sweep(name: str, m: torch.Tensor, rows: EdgeRows, x: torch.Tenso
     changed)``; the split rows' partials live in a scratch of
     ``num_partials x J`` bytes for the length of the call."""
     dev = check_cuda(m)
-    work = rows.work
-    if work is None:
-        raise ValueError("the sweep kernels take rows with a work list (edges.with_work)")
+    work = work_of(rows)
     out = torch.empty_like(m)
-    partial = torch.empty((work.num_partials, m.shape[1]), dtype=torch.int8, device=dev)
+    partial = partial_scratch(work, m.shape[1], dev)
     changed = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.load(name)
     build.check(name, fn(m.data_ptr(), out.data_ptr(), partial.data_ptr(),
-                         work.item_ptr.data_ptr(), work.item_row.data_ptr(),
-                         work.item_slot.data_ptr(), work.split_row.data_ptr(),
-                         work.split_ptr.data_ptr(), rows.nbr.data_ptr(), rows.h.data_ptr(),
-                         rows.lo.data_ptr(), rows.thr.data_ptr(), x.data_ptr(),
-                         work.num_items, work.num_split, m.shape[1], int(variant),
-                         changed.data_ptr(), stream(dev)))
+                         *item_operands(rows, x), work.num_items, work.num_split,
+                         m.shape[1], int(variant), changed.data_ptr(), stream(dev)))
     return out, changed
 
 

@@ -62,7 +62,7 @@ inline bool aligned16(const void* p) {
 
 // ------------------------------------------------ work-item row walk ----
 //
-// The propagate and cascade sweeps give one warp each work item
+// The work-item sweeps (items.cuh) give one warp each work item
 // (kernels/edges.py, WorkList): at most CHUNK edges of one write row. The warp
 // takes the row's registers in passes of kChunkWords words, a lane holding
 // kLaneWords of them. In a pass it walks the item's edges once:
@@ -111,17 +111,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// words t of the pass at base that lie inside the row
-template <int VEC>
-__device__ __forceinline__ void load_lane_words(const int8_t* row, int base, int lane,
-                                                int nwords, uint32_t (&w)[kLaneWords]) {
-#pragma unroll
-  for (int t = 0; t < kLaneWords; ++t) {
-    const int i = lane_word<VEC>(base, lane, t);
-    w[t] = i < nwords ? load_word(row, i) : 0u;
-  }
 }
 
 // the x values of lane's registers in the pass at base
@@ -225,57 +214,6 @@ __device__ __forceinline__ void walk_edges(const int8_t* __restrict__ m, int num
     issue(i + kStages);  // into the slot just read
   }
   cp_async_wait<0>();
-}
-
-// ---------------------------------------- launching a work-item sweep ----
-
-// The item kernel's and the combine kernel's parameters, the same for the
-// propagate and the cascade sweep:
-// (m_in, out, partial, item_ptr, item_row, item_slot, nbr, h, lo, thr, x,
-//  num_items, num_regs, changed) and
-// (m_in, out, partial, split_row, split_ptr, num_split, num_regs, changed).
-using ItemKernel = void (*)(const int8_t*, int8_t*, int8_t*, const int32_t*,
-                            const int32_t*, const int32_t*, const int32_t*,
-                            const uint32_t*, const uint32_t*, const uint32_t*,
-                            const uint32_t*, int, int, int*);
-using CombineKernel = void (*)(const int8_t*, int8_t*, const int8_t*, const int32_t*,
-                               const int32_t*, int, int, int*);
-
-// Launch items[variant][16-byte path] over the work list, then combine over
-// the split rows, on one stream. Returns the launch status.
-inline int launch_item_sweep(const ItemKernel (&items)[2][2], CombineKernel combine,
-                             const void* m_in, void* out, void* partial,
-                             const void* item_ptr, const void* item_row,
-                             const void* item_slot, const void* split_row,
-                             const void* split_ptr, const void* nbr, const void* h,
-                             const void* lo, const void* thr, const void* x,
-                             int num_items, int num_split, int num_regs, int variant,
-                             void* changed, void* stream) {
-  if (num_items <= 0 || num_regs <= 0) return cudaGetLastError();
-  if (variant != 0 && variant != 1) return cudaErrorInvalidValue;
-  if (!rows_aligned(num_regs, m_in, out) || !rows_aligned(num_regs, partial, x))
-    return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec16 = num_regs % 16 == 0 && aligned16(m_in) && aligned16(out) &&
-                     aligned16(partial) && aligned16(x);
-  const int blocks = (num_items + kItemWarps - 1) / kItemWarps;
-  items[variant][vec16]<<<blocks, kItemWarps * kWarp, kRingBytes, s>>>(
-      static_cast<const int8_t*>(m_in), static_cast<int8_t*>(out),
-      static_cast<int8_t*>(partial), static_cast<const int32_t*>(item_ptr),
-      static_cast<const int32_t*>(item_row), static_cast<const int32_t*>(item_slot),
-      static_cast<const int32_t*>(nbr), static_cast<const uint32_t*>(h),
-      static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(thr),
-      static_cast<const uint32_t*>(x), num_items, num_regs, static_cast<int*>(changed));
-  if (num_split > 0) {  // one thread per (split row, word)
-    const long long threads = static_cast<long long>(num_split) * (num_regs / 4);
-    const int block = 256;
-    combine<<<static_cast<unsigned>((threads + block - 1) / block), block, 0, s>>>(
-        static_cast<const int8_t*>(m_in), static_cast<int8_t*>(out),
-        static_cast<const int8_t*>(partial), static_cast<const int32_t*>(split_row),
-        static_cast<const int32_t*>(split_ptr), num_split, num_regs,
-        static_cast<int*>(changed));
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace rt

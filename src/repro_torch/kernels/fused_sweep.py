@@ -1,15 +1,18 @@
-"""``num_sweeps`` Jacobi SIMULATE sweeps in one launch, over slots grouped
+"""``num_sweeps`` Jacobi SIMULATE sweeps in one call, over slots grouped
 by write row: each sweep, where the predicate fires on slot (w, r) for
 register j, ``next[w, j] = max(next[w, j], cur[r, j])`` from ``next = cur``,
 VISITED entries kept. Both w and r index rows of ``m`` (the serial ring's
 kk = 0 bucket: a shard's own block).
 
 ``fused_sweep_cuda`` launches ``csrc/fused_sweep.cu``, which replaces the
-Pallas kernel ``src/repro/kernels/fused_sweep.py`` (``fused_sweep_pallas``);
+Pallas kernel ``src/repro/kernels/fused_sweep.py`` (``fused_sweep_pallas``):
+``num_sweeps`` whole-card work-item sweeps over ``rows.work`` (made with
+``edges.with_work``), one after another on the current stream, ping-ponging
+between the output and a scratch matrix; each call allocates those two and
+the split rows' partial scratch (``num_partials x J`` bytes).
 ``fused_sweep_plain`` is its plain PyTorch version. Both return a new
 matrix and leave ``m`` as it was. ``lane_fill`` (the reference's register
-slab width) is accepted and ignored: the result does not depend on it, and
-the CUDA kernel picks its own slab.
+slab width) is accepted and ignored: the result does not depend on it.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 
 from repro_torch.kernels import build, counters
 from repro_torch.kernels.bucket_propagate import merge_propagate_plain
-from repro_torch.kernels.common import check_cuda, check_rows, stream
+from repro_torch.kernels.common import (check_cuda, check_rows, item_operands,
+                                        partial_scratch, stream, work_of)
 from repro_torch.kernels.edges import EdgeRows
 
 NAME = "fused_sweep"
@@ -34,16 +38,17 @@ def fused_sweep_cuda(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor, *, varian
     check_rows(m, rows, x)
     _check_counts(num_sweeps, lane_fill)
     dev = check_cuda(m)
+    work = work_of(rows)
     if num_sweeps == 0:
         return m.clone()
     out = torch.empty_like(m)
     scratch = torch.empty_like(m) if num_sweeps > 1 else out
+    partial = partial_scratch(work, m.shape[1], dev)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)   # set by the sweeps, unread
     fn = build.load(NAME)
-    build.check(NAME, fn(m.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                         rows.rowptr.data_ptr(), rows.nbr.data_ptr(), rows.h.data_ptr(),
-                         rows.lo.data_ptr(), rows.thr.data_ptr(), x.data_ptr(),
-                         m.shape[0], m.shape[1], int(variant), int(num_sweeps),
-                         stream(dev)))
+    build.check(NAME, fn(m.data_ptr(), out.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
+                         *item_operands(rows, x), work.num_items, work.num_split, m.shape[1],
+                         int(variant), int(num_sweeps), changed.data_ptr(), stream(dev)))
     counters.LAUNCHES[NAME] += 1
     return out
 

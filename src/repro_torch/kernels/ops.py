@@ -7,6 +7,8 @@ which of the two ran.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.bucket_propagate import (bucket_cascade_cuda,
@@ -72,6 +74,7 @@ def bucket_propagate(acc: torch.Tensor, block: torch.Tensor, rows: EdgeRows,
 
 
 def bucket_cascade(acc: torch.Tensor, block: torch.Tensor, rows: EdgeRows,
-                   x: torch.Tensor, *, variant: int) -> torch.Tensor:
+                   x: torch.Tensor, *, variant: int,
+                   partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     fn = bucket_cascade_cuda if _kernel(acc) else bucket_cascade_plain
-    return fn(acc, block, rows, x, variant=variant)
+    return fn(acc, block, rows, x, variant=variant, partial=partial)

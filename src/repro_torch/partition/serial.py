@@ -14,13 +14,18 @@ of ``kernels.ops``:
   (``bucket_propagate`` or its cascade twin ``bucket_cascade``), Jacobi:
   every merge reads the sweep's input grid;
 * the comm-free prologue (``local_sweeps``) merges only the kk = 0 buckets,
-  sweep by sweep or fused into one ``fused_sweep`` launch per shard;
+  sweep by sweep or fused into one ``fused_sweep`` call per shard;
 * ``select`` takes each block's ``cardinality_stats`` (hll) or integer row
   sums of M (fm_mean, as the reference sums M there), adds the sim shards
   in shard order in float32 and breaks near-ties by the minimum original id.
 
 Each bucket's live slots (the padding dropped) are grouped by write row once
-per partition, on the device (``kernels.edges.group_rows``). Seeds are
+per partition, on the device (``kernels.edges.group_rows``), and cut into
+the work list of the merges' kernels (``kernels.edges.with_work``: items of
+at most ``CHUNK`` slots; an empty row is an item too, which the in-place
+cascade merge skips at once and the fused prologue copies). One partial
+scratch, at the largest ``num_partials`` of the state's buckets, serves
+every cascade merge: the launches are ordered on one stream. Seeds are
 original vertex ids whatever the plan's relabeling.
 """
 from __future__ import annotations
@@ -39,17 +44,17 @@ from repro_torch.device import resolve_device
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
 from repro_torch.kernels import ops
-from repro_torch.kernels.edges import group_rows
+from repro_torch.kernels.edges import group_rows, with_work
 from repro_torch.partition.builder import Partition2D, build_partition_2d
 from repro_torch.partition.plan import plan_partition, sample_edge_sets
 
 
 def _bucket_rows(part: Partition2D, arrays, counts: np.ndarray):
     """``rows[kk][v][s]``: the live slots of bucket (v, s, kk), grouped by
-    write row."""
+    write row, with their work list."""
     bh, bw, br, bt, bl = arrays
-    return [[[group_rows(bw[kk][v, s, :n], br[kk][v, s, :n], bh[kk][v, s, :n],
-                         bl[kk][v, s, :n], bt[kk][v, s, :n], part.n_loc)
+    return [[[with_work(group_rows(bw[kk][v, s, :n], br[kk][v, s, :n], bh[kk][v, s, :n],
+                                   bl[kk][v, s, :n], bt[kk][v, s, :n], part.n_loc))
               for s, n in enumerate(counts[v, :, kk].tolist())]
              for v in range(part.mu_v)]
             for kk in range(part.mu_v)]
@@ -65,8 +70,10 @@ class _RingState:
 
     ``reg_offset`` offsets the register hash slots (bank b of a split sample
     space). ``local_sweeps`` comm-free sweeps run before each ring sweep,
-    fused into one launch per shard when ``fuse_sweeps``; ``lane_fill`` is
-    passed on to ``fused_sweep``, whose result does not depend on it.
+    fused into one ``fused_sweep`` call per shard when ``fuse_sweeps``;
+    ``lane_fill`` is passed on to ``fused_sweep``, whose result does not
+    depend on it. ``partial`` is the split rows' scratch of every cascade
+    merge.
     """
 
     def __init__(self, part: Partition2D, g: Graph, cfg: DiFuserConfig, *,
@@ -87,6 +94,10 @@ class _RingState:
                                           part.p_l), part.p_counts)
         self.c_rows = _bucket_rows(part, (part.c_h, part.c_w, part.c_r, part.c_t,
                                           part.c_l), part.c_counts)
+        buckets = [r for grid in (self.p_rows, self.c_rows)
+                   for step in grid for by_v in step for r in by_v]
+        self.partial = torch.empty((max(r.work.num_partials for r in buckets), j_loc),
+                                   dtype=torch.int8, device=dev)
         self.p_width = [int(a.shape[-1]) for a in part.p_h]
         self.c_width = [int(a.shape[-1]) for a in part.c_h]
         canon = ops.sketch_fill(
@@ -109,9 +120,10 @@ class _RingState:
         perm = torch.from_numpy(p.plan.perm[:n_pad].astype(np.int64)).to(self.device)
         return planned.index_select(0, perm)
 
-    def _ring(self, merge, rows, widths, steps) -> bool:
+    def _ring(self, merge, rows, widths, steps, **kw) -> bool:
         """One Jacobi sweep of ``merge`` over the buckets of ``steps``; the
-        merges write a copy of the grid and read the grid."""
+        merges write a copy of the grid and read the grid. ``kw`` goes to
+        every merge."""
         p = self.part
         out = self.m.clone()
         flags = []
@@ -121,7 +133,7 @@ class _RingState:
                     if widths[kk]:
                         flags.append(merge(out[v, s], self.m[(v + kk) % p.mu_v, s],
                                            rows[kk][v][s], self.x[s],
-                                           variant=self.variant))
+                                           variant=self.variant, **kw))
         self.m = out
         return bool(torch.cat(flags).any().item()) if flags else False
 
@@ -130,7 +142,7 @@ class _RingState:
         return self._ring(ops.bucket_propagate, self.p_rows, self.p_width, (0,))
 
     def sweep_local_fused(self, num_sweeps: int) -> None:
-        """``num_sweeps`` x ``sweep_local`` as one ``fused_sweep`` launch per
+        """``num_sweeps`` x ``sweep_local`` as one ``fused_sweep`` call per
         (vertex, sim) shard."""
         p = self.part
         if num_sweeps <= 0 or not self.p_width[0]:
@@ -154,7 +166,7 @@ class _RingState:
 
     def sweep_cascade(self) -> bool:
         return self._ring(ops.bucket_cascade, self.c_rows, self.c_width,
-                          range(self.part.mu_v))
+                          range(self.part.mu_v), partial=self.partial)
 
     @staticmethod
     def fixpoint(sweep, max_iters: int) -> int:

@@ -30,7 +30,7 @@ class RunSpec:
     pad_mode: str = "step"       # "step" | "global" bucket padding
     fasst: bool = True           # FASST sample order (the serial ring always sorts)
     local_sweeps: int = 0        # comm-free sweeps before each ring sweep
-    fuse_sweeps: bool = False    # run them as one fused_sweep launch per shard
+    fuse_sweeps: bool = False    # run them as one fused_sweep call per shard
     lane_fill: int = 0           # register slab of the fused sweep (no effect here)
 
     @property

@@ -25,7 +25,7 @@ from repro.kernels.sketch_fill import sketch_fill_pallas
 from repro_torch.kernels import (bucket_propagate, cascade_step, counters, fused_sample,
                                  fused_sweep, ops, sketch_cardinality, sketch_fill,
                                  sketch_propagate)
-from repro_torch.kernels.edges import CHUNK, EdgeOperands, group_rows
+from repro_torch.kernels.edges import CHUNK, EdgeOperands, group_rows, with_work
 
 REF_PRED = {0: fused_predicate, 1: remix_interval_predicate}
 
@@ -183,7 +183,31 @@ def _bucket(n_loc, j_loc, slots, seed):
 
 def _rows(slots, n_loc, device="cpu"):
     w, r, h, lo, thr = (torch.from_numpy(a.view(np.int32)).to(device) for a in slots)
-    return group_rows(w, r, h, lo, thr, n_loc)
+    return with_work(group_rows(w, r, h, lo, thr, n_loc))
+
+
+#: write rows of these many slots in a hub bucket: the longest row of phase
+#: 4b's buckets at rmat:20, rows just over and at CHUNK, and an empty row
+BUCKET_HUB_DEGREES = (13_657, CHUNK + 1, CHUNK, 0)
+
+
+def _hub_bucket(j_loc, seed, n_loc=600):
+    """Like ``_bucket``, on a bucket whose work list splits rows: write rows
+    10-13 with ``BUCKET_HUB_DEGREES`` slots, 1000 random slots among write
+    rows 30-559, rows 560 and up without slots; read rows anywhere."""
+    acc, block, _, x = _bucket(n_loc, j_loc, 0, seed)
+    rng = np.random.default_rng(seed + 1)
+    w = np.concatenate([rng.integers(30, n_loc - 40, 1000)]
+                       + [np.full(d, 10 + i) for i, d in enumerate(BUCKET_HUB_DEGREES)])
+    slots = w.shape[0]
+
+    def u32(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    r = rng.integers(0, n_loc, slots).astype(np.int32)
+    thr = u32(slots) >> rng.integers(0, 6, slots).astype(np.uint32)
+    thr[rng.random(slots) < 0.1] = 0
+    return acc, block, (w.astype(np.int32), r, u32(slots), u32(slots), thr), x
 
 
 def _xt(x, device="cpu"):
@@ -304,27 +328,23 @@ def _u32(t):
     return t.numpy().view(np.uint32)
 
 
-@pytest.mark.parametrize("order", ["by_src", "by_dst"])
-def test_work_list_cuts_rows_into_items(order):
-    _, edges, _ = _hub_case(32, seed=20)
-    e = EdgeOperands.from_numpy(*edges, 520, "cpu")
-    rows = getattr(e, order)
+def _check_work_list(rows, n_rows, num_edges):
+    """The work list of ``rows``: items cover the edges in order, each
+    within one row and at most ``CHUNK`` long, every row (an empty one too)
+    at least once; split rows own consecutive partial slots. Returns each
+    row's item count and degree."""
     w = rows.work
     rowptr, ptr = rows.rowptr.numpy(), w.item_ptr.numpy()
     item_row, slot = w.item_row.numpy(), w.item_slot.numpy()
     deg, size = np.diff(rowptr), np.diff(ptr)
     # every edge in exactly one item: the items cover the edges in order
-    assert ptr[0] == 0 and ptr[-1] == e.num_edges and (size >= 0).all()
+    assert ptr[0] == 0 and ptr[-1] == num_edges and (size >= 0).all()
     assert size.max() <= CHUNK
     # each item within one row, the rows in order, every row at least once
     assert (np.diff(item_row) >= 0).all()
     assert (rowptr[item_row] <= ptr[:-1]).all() and (ptr[1:] <= rowptr[item_row + 1]).all()
-    pieces = np.bincount(item_row, minlength=520)
+    pieces = np.bincount(item_row, minlength=n_rows)
     np.testing.assert_array_equal(pieces, np.maximum(1, -(-deg // CHUNK)))
-    hubs = (10, 11, 12, 13, 14) if order == "by_src" else (20, 21, 22, 23, 24)
-    assert [int(deg[r]) for r in hubs] == list(HUB_DEGREES)
-    assert [int(pieces[r]) for r in hubs] == [157, 1, 1, 2, 4]
-    assert (deg[500:] == 0).all() and (pieces[500:] == 1).all()
     # an unsplit row writes itself; a split row's items own distinct slots,
     # the consecutive range split_ptr gives the row
     split = np.flatnonzero(deg > CHUNK)
@@ -334,42 +354,88 @@ def test_work_list_cuts_rows_into_items(order):
     assert w.num_partials == sp[-1] == (slot >= 0).sum()
     for k, r in enumerate(split):
         np.testing.assert_array_equal(slot[item_row == r], np.arange(sp[k], sp[k + 1]))
+    return pieces, deg
 
 
-def _emulate_items(m, e: EdgeOperands, x, variant, cascade):
-    """The sweep as the kernels compute it: each work item's result from its
-    own edges, written to its row or to its partial slot, then each split
-    row's partials merged by max (propagate) or OR (cascade)."""
-    rows = e.by_dst if cascade else e.by_src
+@pytest.mark.parametrize("order", ["by_src", "by_dst"])
+def test_work_list_cuts_rows_into_items(order):
+    _, edges, _ = _hub_case(32, seed=20)
+    e = EdgeOperands.from_numpy(*edges, 520, "cpu")
+    pieces, deg = _check_work_list(getattr(e, order), 520, e.num_edges)
+    hubs = (10, 11, 12, 13, 14) if order == "by_src" else (20, 21, 22, 23, 24)
+    assert [int(deg[r]) for r in hubs] == list(HUB_DEGREES)
+    assert [int(pieces[r]) for r in hubs] == [157, 1, 1, 2, 4]
+    assert (deg[500:] == 0).all() and (pieces[500:] == 1).all()
+
+
+def test_bucket_work_list_cuts_rows_into_items():
+    _, _, sl, _ = _hub_bucket(32, seed=22)
+    rows = _rows(sl, 600)
+    pieces, deg = _check_work_list(rows, 600, sl[0].shape[0])
+    assert [int(deg[r]) for r in (10, 11, 12, 13)] == list(BUCKET_HUB_DEGREES)
+    assert [int(pieces[r]) for r in (10, 11, 12, 13)] == [54, 2, 1, 1]
+    np.testing.assert_array_equal(rows.work.split_row.numpy(), [10, 11])
+    assert rows.work.num_partials == 56
+    # the empty rows are items of their own, without edges
+    empty = np.flatnonzero(deg == 0)
+    assert 13 in empty and (deg[560:] == 0).all()
+    sizes = np.diff(rows.work.item_ptr.numpy())
+    assert (sizes[np.isin(rows.work.item_row.numpy(), empty)] == 0).all()
+
+
+def _emulate_work(own, gather, rows, x, variant, cascade, in_place=False, seed=None):
+    """A work-item sweep as the kernels compute it (``csrc/items.cuh``): each
+    item's result from its own row of ``own`` and its edges' rows of
+    ``gather``, written to its row or to its partial slot, then each split
+    row's partials folded into its row by max (propagate) or OR (cascade).
+    ``in_place``: the items read and write one matrix, as the bucket cascade
+    does with ``acc``, an item without edges is skipped, and the items run
+    in a random order (``seed``). Returns ``(out, changed)``."""
     w = rows.work
     live = np.asarray(REF_PRED[variant](jnp.asarray(_u32(rows.h))[:, None],
                                         jnp.asarray(_u32(rows.lo))[:, None],
                                         jnp.asarray(_u32(rows.thr))[:, None],
                                         jnp.asarray(x)[None, :]))
     nbr, ptr = rows.nbr.numpy(), w.item_ptr.numpy()
-    vis = m == -1
-    out = m.copy()
-    partial = np.zeros((w.num_partials, m.shape[1]), np.int8)
-    for i, (r, slot) in enumerate(zip(w.item_row.numpy(), w.item_slot.numpy())):
-        a, b = ptr[i], ptr[i + 1]
+    out = own.copy()
+    src = out if in_place else own    # where an item reads its own row
+    partial = np.zeros((w.num_partials, own.shape[1]), np.int8)
+
+    def finish(acc, prev):
         if cascade:
-            acc = vis[r] | (live[a:b] & vis[nbr[a:b]]).any(0)
+            return np.where(acc, np.int8(-1), prev)
+        return np.where(prev == -1, np.int8(-1), acc)
+
+    items = list(zip(range(w.num_items), w.item_row.numpy(), w.item_slot.numpy()))
+    if in_place:
+        np.random.default_rng(seed).shuffle(items)
+    for i, r, slot in items:
+        a, b = ptr[i], ptr[i + 1]
+        if in_place and a == b:
+            continue
+        if cascade:
+            acc = (src[r] == -1) | (live[a:b] & (gather[nbr[a:b]] == -1)).any(0)
         else:
-            acc = np.maximum(m[r], np.where(live[a:b], m[nbr[a:b]], -1).max(0, initial=-1))
+            reads = np.where(live[a:b], gather[nbr[a:b]], -1).max(0, initial=-1)
+            acc = np.maximum(src[r], reads)
         if slot >= 0:
             partial[slot] = acc
-        elif cascade:
-            out[r] = np.where(acc, -1, m[r])
         else:
-            out[r] = np.where(vis[r], -1, acc)
+            out[r] = finish(acc, src[r])
     sp = w.split_ptr.numpy()
     for k, r in enumerate(w.split_row.numpy()):
         parts = partial[sp[k]:sp[k + 1]]
-        if cascade:
-            out[r] = np.where(parts.astype(bool).any(0), -1, m[r])
-        else:
-            out[r] = np.where(vis[r], -1, parts.max(0))
-    return out
+        prev = src[r].copy()
+        acc = ((prev == -1) | parts.astype(bool).any(0)) if cascade else np.maximum(
+            prev, parts.max(0))
+        out[r] = finish(acc, prev)
+    return out, bool((out != own).any())
+
+
+def _emulate_items(m, e: EdgeOperands, x, variant, cascade):
+    """The single path's sweep through ``_emulate_work`` (self_in = gather
+    = m, a fresh output)."""
+    return _emulate_work(m, m, e.by_dst if cascade else e.by_src, x, variant, cascade)[0]
 
 
 @pytest.mark.parametrize("variant", [0, 1])
@@ -387,6 +453,55 @@ def test_work_items_merge_to_the_sweep(sweep, variant):
     np.testing.assert_array_equal(got, want.numpy())
     assert bool(changed.item()) == bool((got != m).any())
     assert (got[m == -1] == -1).all()
+
+
+# a hub bucket (``_hub_bucket``, slots None): the work list splits rows
+HUB_BUCKETS = [(600, 64, None), (600, 36, None)]
+
+
+def _bucket_or_hub(n_loc, j_loc, slots, seed):
+    return _hub_bucket(j_loc, seed, n_loc) if slots is None else _bucket(n_loc, j_loc, slots,
+                                                                         seed)
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS + HUB_BUCKETS)
+def test_bucket_cascade_items_merge_in_place(n_loc, j_loc, slots, variant):
+    acc, block, sl, x = _bucket_or_hub(n_loc, j_loc, slots, seed=23)
+    acc[10, ::3] = -1              # a hub row partly VISITED, in acc and block
+    block[sl[1][:50]] = -1
+    rows = _rows(sl, n_loc)
+    got, changed = _emulate_work(acc, block, rows, x, variant, cascade=True, in_place=True,
+                                 seed=variant)
+    w, r, h, lo, thr = (jnp.asarray(a) for a in sl)
+    vis = _bucket_sweep_cascade((jnp.asarray(acc) == -1).astype(jnp.uint8),
+                                jnp.asarray(block), h, w, r, thr, jnp.asarray(x), lo,
+                                REF_PRED[variant])
+    want = np.where(np.asarray(vis).astype(bool), np.int8(-1), acc)
+    np.testing.assert_array_equal(got, want)
+    plain = torch.from_numpy(acc.copy())
+    flag = bucket_propagate.bucket_cascade_plain(plain, torch.from_numpy(block), rows, _xt(x),
+                                                 variant=variant)
+    np.testing.assert_array_equal(got, plain.numpy())
+    assert changed == bool(flag.item())
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("num_sweeps", [1, 2, 3])
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS[:4] + HUB_BUCKETS)
+def test_fused_sweep_items_equal_plain(n_loc, j_loc, slots, num_sweeps, variant):
+    m, _, sl, x = _bucket_or_hub(n_loc, j_loc, slots, seed=24)
+    rows = _rows(sl, n_loc)
+    got = m
+    for _ in range(num_sweeps):    # ping-pong: each sweep reads the last one's output
+        got, _ = _emulate_work(got, got, rows, x, variant, cascade=False)
+    w, r, h, lo, thr = (jnp.asarray(a) for a in sl)
+    want = np.asarray(ref.fused_sweep_ref(jnp.asarray(m), w, r, thr, jnp.asarray(x), h, lo,
+                                          num_sweeps=num_sweeps, predicate=REF_PRED[variant]))
+    np.testing.assert_array_equal(got, want)
+    plain = fused_sweep.fused_sweep_plain(torch.from_numpy(m), rows, _xt(x), variant=variant,
+                                          num_sweeps=num_sweeps)
+    np.testing.assert_array_equal(got, plain.numpy())
 
 
 # ------------------------------------------------ on a CUDA device only ----
@@ -439,9 +554,9 @@ def test_kernels_match_plain_on_cuda(cuda_device, n_pad, num_regs, num_edges):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS)
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS + [(600, 512, None), (600, 100, None)])
 def test_ring_kernels_match_plain_on_cuda(cuda_device, n_loc, j_loc, slots):
-    acc, block, sl, x = _bucket(n_loc, j_loc, slots, seed=13)
+    acc, block, sl, x = _bucket_or_hub(n_loc, j_loc, slots, seed=13)
     acc_t, block_t = torch.from_numpy(acc).to(cuda_device), torch.from_numpy(block).to(cuda_device)
     rows, xt = _rows(sl, n_loc, cuda_device), _xt(x, cuda_device)
     if j_loc % 4:  # the kernels move whole 32-bit words of registers
@@ -455,6 +570,14 @@ def test_ring_kernels_match_plain_on_cuda(cuda_device, n_loc, j_loc, slots):
             fb = getattr(bucket_propagate, name + "_plain")(b, block_t, rows, xt, variant=variant)
             assert torch.equal(a, b), (name, variant)
             assert bool(fa.item()) == bool(fb.item())
+        # the cascade with a scratch passed in, larger than the list needs
+        a, b = acc_t.clone(), acc_t.clone()
+        partial = torch.empty((rows.work.num_partials + 3, j_loc), dtype=torch.int8,
+                              device=cuda_device)
+        fa = bucket_propagate.bucket_cascade_cuda(a, block_t, rows, xt, variant=variant,
+                                                  partial=partial)
+        fb = bucket_propagate.bucket_cascade_plain(b, block_t, rows, xt, variant=variant)
+        assert torch.equal(a, b) and bool(fa.item()) == bool(fb.item())
         for num_sweeps in (1, 2, 3):
             assert torch.equal(
                 fused_sweep.fused_sweep_cuda(acc_t, rows, xt, variant=variant,

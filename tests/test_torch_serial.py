@@ -154,6 +154,40 @@ def test_backend_build_matrix_equals_single():
     assert torch.equal(m_bank, want)
 
 
+def test_ring_state_buckets_carry_work_lists(monkeypatch):
+    """Every bucket of the ring state has its work list, one partial scratch
+    at the largest ``num_partials`` serves the cascade merges, and the
+    cascade sweep passes it to every merge."""
+    from repro_torch.core.sampling import make_x_vector
+    from repro_torch.kernels import ops
+
+    _, tg = _graphs(8, seed=4)
+    g = tg.sorted_by_dst()
+    cfg = T_difuser.DiFuserConfig(num_registers=64, seed=2)
+    x = make_x_vector(64, seed=2)
+    part = T_serial._prepare(g, x, cfg, mu_v=2, mu_s=2, strategy="degree", pad_mode="step",
+                             device=torch.device("cpu"), stats={})
+    st = T_serial._RingState(part, g, cfg)
+    buckets = [r for grid in (st.p_rows, st.c_rows) for step in grid for by_v in step
+               for r in by_v]
+    assert len(buckets) == 2 * part.mu_v * part.mu_v * part.mu_s
+    for rows in buckets:
+        w = rows.work
+        assert w is not None and w.num_items >= part.n_loc
+        assert int(w.item_ptr[-1]) == rows.nbr.numel()
+    assert tuple(st.partial.shape) == (max(r.work.num_partials for r in buckets), part.j_loc)
+    seen = []
+    plain = ops.bucket_cascade
+
+    def merge(*args, partial=None, **kw):
+        seen.append(partial)
+        return plain(*args, partial=partial, **kw)
+
+    monkeypatch.setattr(ops, "bucket_cascade", merge)
+    st.sweep_cascade()
+    assert seen and all(p is st.partial for p in seen)
+
+
 def test_resolve_backend():
     assert resolve_backend(RunSpec()).name == "single"
     assert resolve_backend(RunSpec(mu_v=2, mu_s=1)).name == "serial"

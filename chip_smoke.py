@@ -8,23 +8,28 @@ Phases (each raises on failure; none is caught):
 
 1. device: the card's name and power limit (``nvidia-smi``); build the
    seven CUDA sources from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   each, in parallel) and print what ``ptxas`` reports;
+   each, in parallel) and print what ``ptxas`` reports for each kernel
+   instance (registers, spills);
 2. each kernel against its plain PyTorch version on the card, on several
    shapes (both predicate forms, ``reg_offset != 0``, VISITED rows, a prime
    edge count, register counts that are not multiples of 32; for the sweeps
    also rows of 40,000 and of about ``CHUNK`` edges, which they split; for the
    serial ring's kernels a prime and an empty bucket, hub buckets with write
    rows of 13,657, 257, 256 and 0 slots at ``j_loc`` 512 and 100 (the 16-
-   and the 4-byte path), the in-place cascade merge with a partial scratch
-   passed in, ``num_sweeps`` 1-3 and several ``lane_fill``): equal int8 and
-   uint8 outputs, equal changed flags and bit-equal float32 statistics; a
-   register count off multiples of 4 is refused;
+   and the 4-byte path), both in-place merges with a partial scratch passed
+   in and with their own, ``num_sweeps`` 1-3 and several ``lane_fill``;
+   ``fused_sample`` at 36, 100, 128 and 512 samples on a prime edge count):
+   equal int8 and uint8 outputs, equal changed flags and bit-equal float32
+   statistics; a bare kernel refuses a register or sample count off
+   multiples of 4;
 3. the kernel path against the plain path on the card at rmat:14, J=256,
    K=8, for wc, ic:0.1, lt and dic:1.0 (for the plain path this script puts
    the plain versions in place of ``kernels.ops``' functions): seeds,
    rebuilds and sweep counts equal, gains and scores to rtol 1e-6; the same
    for the ``serial`` backend (grid 2x2, ``degree`` plan, fused prologue of
-   2 sweeps), whose seeds must also equal the single backend's;
+   2 sweeps), whose seeds must also equal the single backend's; and, through
+   the drivers' register padding, the single path at J=37 and the serial
+   backend at J=100 (``j_loc`` 50);
 4. the single-device slice at full size through the launcher's entry point
    (``repro_torch.launch.im``: rmat:20, setting 0.1, wc, J=1024, K=50), with
    the launch counters reset before and read after: every kernel of the path
@@ -35,7 +40,9 @@ Phases (each raises on failure; none is caught):
 5. each kernel at phase 4's and 4b's shapes: time (CUDA events), its plain
    version's time, the largest difference between the two, and the bound;
    for the sweeps and the serial ring's merges also their work lists
-   (items, split rows, partials, longest item) and the bytes they gather.
+   (items, split rows, partials, longest item) and the bytes they gather;
+   one ``bucket_propagate`` launch over each propagate bucket of a ring
+   sweep, summed; the registers of the in-place merges' instances.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
 contract line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -98,6 +105,47 @@ def nvidia_smi_line() -> str:
 
 # --------------------------------------------------------------- phase 1 ----
 
+_PTXAS: dict = {}   # source -> [(kernel instance, registers, spill bytes)]
+
+
+def _instance(mangled: str) -> str:
+    """A readable name for a kernel's mangled entry: the item walk's
+    template arguments (operation, predicate, unit bytes, in place), else the
+    function's name and its integer template arguments."""
+    import re
+
+    m = re.search(r"item_(sweep|combine)INS_\d+(\w+?)E(?:Li(\d)ELi(\d+)E)?Lb(\d)E", mangled)
+    if m:
+        kind, op, pred, vec, in_place = m.groups()
+        args = f"PRED {pred}, VEC {vec}, " if pred else ""
+        return f"item_{kind}<{op}, {args}{'in place' if in_place == '1' else 'out of place'}>"
+    m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", mangled)
+    if m:
+        args = re.findall(r"Li(\d+)E", m.group(2) or "")
+        return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def _ptxas_table(report: str) -> list:
+    """(instance, registers, spill store + load bytes) of each entry
+    function in a ``ptxas -v`` report."""
+    import re
+
+    rows, entry, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((_instance(entry), int(m.group(1)), spill))
+            entry = None
+    return rows
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -106,11 +154,11 @@ def phase_build():
     log(f"[1] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f}s -> {build.BUILD_DIR}")
     OUT.mkdir(parents=True, exist_ok=True)
-    for name, rep in reports.items():
+    for name, rep in sorted(reports.items()):
         (OUT / f"ptxas_{name}.txt").write_text(rep)
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        _PTXAS[name] = _ptxas_table(rep)
+        for inst, regs, spill in _PTXAS[name]:
+            log(f"    {name}: {inst}: {regs} registers, {spill} bytes spilled")
     for name in build.KERNELS:
         build.load(name)
 
@@ -234,6 +282,7 @@ def phase_kernels():
     else:
         check(False, "sketch_fill_cuda took a register count off multiples of 4")
     phase_ring_kernels()
+    phase_sample_kernel()
     torch.cuda.synchronize()
 
 
@@ -287,25 +336,24 @@ def phase_ring_kernels():
     for i, (n_loc, j_loc, slots, hubs) in enumerate(cases):
         acc, block, rows, x = _random_bucket(n_loc, j_loc, slots, seed=10 + i,
                                              device="cuda", hubs=hubs)
-        # one scratch for every cascade merge, larger than the list needs, as
-        # the ring state keeps one at its buckets' largest num_partials
+        # one scratch for every merge, larger than the list needs, as the
+        # ring state keeps one at its buckets' largest num_partials
         partial = torch.empty((rows.work.num_partials + 5, j_loc), dtype=torch.int8,
                               device="cuda")
         what = (n_loc, j_loc, rows.nbr.numel(), hubs)
         for variant in (0, 1):
             for name in ("bucket_propagate", "bucket_cascade"):
-                kw = dict(partial=partial) if name == "bucket_cascade" else {}
                 a, b = acc.clone(), acc.clone()
-                fa = getattr(bp, name + "_cuda")(a, block, rows, x, variant=variant, **kw)
+                fa = getattr(bp, name + "_cuda")(a, block, rows, x, variant=variant,
+                                                 partial=partial)
                 fb = getattr(bp, name + "_plain")(b, block, rows, x, variant=variant)
                 check(torch.equal(a, b), (name, what, variant))
                 check(bool(fa.item()) == bool(fb.item()), (name, what, variant, "changed"))
                 check(bool((a[acc == -1] == -1).all()), (name, "VISITED kept"))
-            # the cascade with the scratch the wrapper allocates; b is the
-            # plain cascade's result, the loop's last merge
-            a = acc.clone()
-            bp.bucket_cascade_cuda(a, block, rows, x, variant=variant)
-            check(torch.equal(a, b), ("bucket_cascade", what, variant, "own scratch"))
+                # with the scratch the wrapper allocates
+                a = acc.clone()
+                getattr(bp, name + "_cuda")(a, block, rows, x, variant=variant)
+                check(torch.equal(a, b), (name, what, variant, "own scratch"))
             for num_sweeps in (1, 2, 3):
                 for lane_fill in (0, 8, 24, 256):
                     a = fused_sweep.fused_sweep_cuda(acc, rows, x, variant=variant,
@@ -324,10 +372,43 @@ def phase_ring_kernels():
         w = rows.work
         log(f"[2] n_loc={n_loc} j_loc={j_loc} slots={rows.nbr.numel()}"
             f"{f' hub rows {list(hubs)}' if hubs else ''} (work items {w.num_items}, split "
-            f"rows {w.num_split}, partials {w.num_partials}): bucket_propagate, "
-            f"bucket_cascade (in place, scratch passed in and its own), fused_sweep "
+            f"rows {w.num_split}, partials {w.num_partials}): bucket_propagate and "
+            f"bucket_cascade (in place, scratch passed in and their own), fused_sweep "
             f"(num_sweeps 1-3, lane_fill 0/8/24/256) and fused_sample equal their plain "
             f"versions (both predicates, changed flags equal)")
+
+
+def phase_sample_kernel():
+    """``fused_sample`` against its plain version at sample counts on the
+    4-byte path (36, 100) and the 16-byte path (128, 512), a prime edge
+    count; a sample count off multiples of 4 refused."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fused_sample
+
+    rng = np.random.default_rng(77)
+    num_edges = 65521
+    u32 = lambda size: rng.integers(0, 1 << 32, size, dtype=np.uint64).astype(np.uint32)
+    thr = u32(num_edges) >> rng.integers(0, 8, num_edges).astype(np.uint32)
+    thr[rng.random(num_edges) < 0.05] = 0
+    h, lo, thr = (torch.from_numpy(a.view(np.int32)).cuda()
+                  for a in (u32(num_edges), u32(num_edges), thr))
+    for num_samples in (36, 100, 128, 512):
+        x = torch.from_numpy(u32(num_samples).view(np.int32)).cuda()
+        for variant in (0, 1):
+            a = fused_sample.fused_sample_cuda(h, lo, thr, x, variant=variant)
+            b = fused_sample.fused_sample_plain(h, lo, thr, x, variant=variant)
+            check(a.dtype == torch.uint8 and torch.equal(a, b),
+                  ("fused_sample", num_edges, num_samples, variant))
+    log(f"[2] fused_sample E={num_edges} R=36/100/128/512: equal its plain version "
+        f"(both predicates)")
+    try:
+        fused_sample.fused_sample_cuda(h, lo, thr, x[:50], variant=0)
+    except ValueError as e:
+        log(f"[2] R=50 refused: {e}")
+    else:
+        check(False, "fused_sample_cuda took a sample count off multiples of 4")
 
 
 # --------------------------------------------------------------- phase 3 ----
@@ -417,6 +498,22 @@ def phase_parity():
             f"backend's and the plain path's (sweeps={ring.propagate_iters}, cascade "
             f"sweeps={ring.stats['cascade_sweeps']}); kernel path {t_k:.2f}s, plain "
             f"path {t_p:.2f}s")
+    # register counts off multiples of 4, through the drivers' padding
+    kern, t_k, t_p = _kernel_and_plain(
+        lambda: run(g, 8, RunSpec(num_registers=37), device="cuda").result, SINGLE_KERNELS,
+        "single J=37")
+    log(f"[3] rmat:14 J=37 (padded to 40) K=8 wc: seeds {kern.seeds.tolist()} "
+        f"sweeps={kern.propagate_iters} equal the plain path's; kernel path {t_k:.2f}s, "
+        f"plain path {t_p:.2f}s")
+    single = run(g, 8, RunSpec(num_registers=100), device="cuda").result
+    ring, t_k, t_p = _kernel_and_plain(
+        lambda: run(g, 8, RunSpec(num_registers=100, **SERIAL), device="cuda").result,
+        SERIAL_KERNELS, "serial J=100")
+    np.testing.assert_array_equal(ring.seeds, single.seeds)
+    log(f"[3] serial 2x2 degree fused prologue, J=100 (j_loc 50, padded to 52), wc: seeds "
+        f"{ring.seeds.tolist()} equal the single backend's at J=100 and the plain path's "
+        f"(sweeps={ring.propagate_iters}, cascade sweeps={ring.stats['cascade_sweeps']}); "
+        f"kernel path {t_k:.2f}s, plain path {t_p:.2f}s")
 
 
 # --------------------------------------------------------------- phase 4 ----
@@ -543,7 +640,10 @@ def phase_ring_timings(serial: dict) -> list:
                                r.work.split_row, r.work.split_ptr))
     log(f"[5] ring state: {len(buckets)} bucket work lists, {list_bytes / 1e9:.4f} GB; one "
         f"partial scratch of {tuple(st.partial.shape)} ({st.partial.numel() / 1e6:.3f} MB) "
-        f"for every cascade merge")
+        f"for every propagate and cascade merge")
+    for inst, regs, spill in _PTXAS.get("bucket_propagate", []):
+        if "in place" in inst:
+            log(f"[5] ptxas {inst}: {regs} registers, {spill} bytes spilled")
 
     def gathers(nbytes):
         return (f"gathers {nbytes / 1e9:.4f} GB, {nbytes / MEM_BYTES_PER_S * 1e3:.4f} ms "
@@ -572,8 +672,8 @@ def phase_ring_timings(serial: dict) -> list:
         else:   # one VISITED test per (slot, word), the predicate on VISITED reads
             vis_pairs = int((block == -1).sum(1)[rows.nbr.long()].sum().item())
             ops = slots * j // REGS_PER_WORD + ops_per_pair * vis_pairs
-        # the cascade reuses the ring state's scratch, as its sweeps do
-        kw = dict(partial=st.partial) if name == "bucket_cascade" else {}
+        # the merges reuse the ring state's scratch, as its sweeps do
+        kw = dict(partial=st.partial)
         kern = getattr(bp, name + "_cuda")
         plain = getattr(bp, name + "_plain")
         a, b = acc.clone(), acc.clone()
@@ -584,10 +684,30 @@ def phase_ring_timings(serial: dict) -> list:
         ms = _time_in_place_ms(acc.clone, call(kern, **kw), reps=5)
         plain_ms = _time_in_place_ms(acc.clone, call(plain), reps=1)
         log(f"[5] {name}: bucket (v={v}, s={s}, kk={kk}) of {slots} slots, longest row "
-            f"{int(torch.diff(rows.rowptr).max().item())} slots; {_work_line(rows)}"
-            f"{'' if kw else ' (not used by this kernel: a warp walks a whole row)'}")
+            f"{int(torch.diff(rows.rowptr).max().item())} slots; {_work_line(rows)}")
         out.append(_row(name, "bucket_propagate.cu", replaces, launches.get(name, 0), err,
                         ms, plain_ms, _bound(nbytes, ops), note=gathers(slots * j)))
+
+    # one launch over each propagate bucket of a ring sweep, each on its
+    # built block, summed
+    total_ms, total_slots, merges = 0.0, 0, 0
+    for kk in range(part.mu_v):
+        for v in range(part.mu_v):
+            for s in range(part.mu_s):
+                if not st.p_width[kk]:
+                    continue
+                rows, block = st.p_rows[kk][v][s], built[(v + kk) % part.mu_v, s]
+                total_ms += _time_in_place_ms(
+                    built[v, s].clone,
+                    lambda t: bp.bucket_propagate_cuda(t, block, rows, st.x[s],
+                                                       variant=variant, partial=st.partial),
+                    reps=3)
+                total_slots += rows.nbr.numel()
+                merges += 1
+    log(f"[5] bucket_propagate over a ring sweep's {merges} propagate buckets ({total_slots} "
+        f"slots): {total_ms:.4f} ms in all, one launch each (mean of 3 per bucket), "
+        f"{total_slots / total_ms / 1e6:.3f} G slots/s")
+    serial["ring_sweep_propagate_ms"] = total_ms
 
     v, s = np.unravel_index(int(np.argmax(part.p_counts[:, :, 0])), part.p_counts.shape[:2])
     rows, x, m = st.p_rows[0][v][s], st.x[s], built[v, s]

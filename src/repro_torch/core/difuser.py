@@ -4,7 +4,10 @@ Counterpart of the reference's ``core/difuser.py``: the build (fill, then
 propagate to a fixpoint) and K seed rounds of {select, cascade, score, lazy
 rebuild}, as Python loops over the kernels of ``kernels.ops``. The score and
 rebuild arithmetic is float32, in the reference's order of operations, so
-seeds, rebuilds and sweep counts come out the same.
+seeds, rebuilds and sweep counts come out the same. Any register count J
+runs: the matrix and x the kernels see are ``sketch.padded_regs(J)`` wide
+(inert VISITED columns, see ``core.sketch``), and what the entry points
+return is J wide.
 
 Entry points (``build_sketch_matrix``, ``find_seeds``, ``find_seeds_warm``)
 run on CUDA unless ``device="cpu"`` is passed; see ``repro_torch.device``.
@@ -22,7 +25,8 @@ from repro_torch.core import select as _select
 from repro_torch.core.cascade import cascade_from_seed
 from repro_torch.core.sampling import make_x_vector
 from repro_torch.core.simulate import propagate_to_fixpoint
-from repro_torch.core.sketch import VISITED, count_visited
+from repro_torch.core.sketch import (VISITED, blank_matrix, count_visited, pad_columns,
+                                     pad_x, real_columns)
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.diffusion.constants import DEFAULT_MODEL
@@ -83,20 +87,24 @@ def edge_operands(g: Graph, cfg: DiFuserConfig, device) -> EdgeOperands:
 
 
 def x_tensor(x: np.ndarray, device) -> torch.Tensor:
-    """x on the device, as int32 holding the uint32 bits."""
-    return torch.from_numpy(np.require(x, np.uint32, ["C", "W"]).view(np.int32)).to(device)
+    """x on the device, as int32 holding the uint32 bits, padded to the
+    kernels' register count."""
+    t = torch.from_numpy(np.require(x, np.uint32, ["C", "W"]).view(np.int32)).to(device)
+    return pad_x(t, t.shape[0])
 
 
 def _init_registers(n_pad: int, n_real: int, num_regs: int, device) -> torch.Tensor:
-    m = torch.zeros((n_pad, num_regs), dtype=torch.int8, device=device)
+    """Zeros, padding rows and padding columns VISITED."""
+    m = blank_matrix(n_pad, num_regs, device)
     m[n_real:] = VISITED
     return m
 
 
-def _as_matrix(matrix, device) -> torch.Tensor:
+def _as_matrix(matrix, num_regs: int, device) -> torch.Tensor:
+    """A J-wide matrix (tensor or numpy) on ``device``, padded for the kernels."""
     if isinstance(matrix, np.ndarray):
         matrix = torch.from_numpy(np.require(matrix, np.int8, ["C", "W"]))
-    return matrix.to(device)
+    return pad_columns(matrix.to(device), num_regs)
 
 
 def _sync(device: torch.device) -> None:
@@ -128,7 +136,7 @@ def _seed_rounds(m, edges, x_t, *, k, n_real, num_regs, cfg, variant, stats):
         m, it = cascade_from_seed(m, s, edges, x_t, variant=variant,
                                   max_iters=cfg.max_cascade_iters)
         stats["cascade_sweeps"] += it
-        new_score = f32(count_visited(m, n_real).item()) / regs
+        new_score = f32(count_visited(m, n_real, num_regs).item()) / regs
         rel = (new_score - oldscore) / np.maximum(new_score, floor)
         do_rebuild = bool(rel > threshold)
         if do_rebuild:
@@ -150,7 +158,7 @@ def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
                         init_matrix=None, normalized: bool = False,
                         edges: Optional[EdgeOperands] = None, device=None):
     """Alg. 4 lines 3-6 once. Returns ``(matrix int8[n_pad, J] on the
-    device, build_iters, x_used)``.
+    device, build_iters, x_used)``, J = len(x).
 
     ``reg_offset`` offsets the register hash slots (bank b of a split sample
     space fills slots from b * J). ``init_matrix`` (tensor or numpy) starts
@@ -169,10 +177,10 @@ def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
         m, iters = _build(edges, x_t, g.n, num_regs=x.shape[0], cfg=cfg,
                           variant=variant, reg_offset=reg_offset)
     else:
-        m, iters = propagate_to_fixpoint(_as_matrix(init_matrix, dev), edges, x_t,
-                                         variant=variant,
+        m, iters = propagate_to_fixpoint(_as_matrix(init_matrix, x.shape[0], dev), edges,
+                                         x_t, variant=variant,
                                          max_iters=cfg.max_propagate_iters)
-    return m, iters, x
+    return real_columns(m, x.shape[0]), iters, x
 
 
 def find_seeds(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
@@ -219,7 +227,7 @@ def find_seeds_warm(g: Graph, k: int, config: Optional[DiFuserConfig] = None, *,
     stats = {}
     t0 = time.perf_counter()
     seeds, gains, scores, rebuilds = _seed_rounds(
-        _as_matrix(matrix, dev), edges, x_tensor(x, dev), k=k, n_real=g.n,
+        _as_matrix(matrix, x.shape[0], dev), edges, x_tensor(x, dev), k=k, n_real=g.n,
         num_regs=x.shape[0], cfg=cfg, variant=resolve_model(cfg.model).variant,
         stats=stats)
     _sync(dev)

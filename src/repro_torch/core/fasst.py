@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.sketch import pad_x
 from repro_torch.kernels import ops
 
 #: edges per ``fused_sample`` launch: 512 MiB of mask at 512 samples
@@ -38,10 +39,14 @@ def sampled_by_any(h: torch.Tensor, lo: torch.Tensor, thr: torch.Tensor,
                    x: torch.Tensor, *, variant: int,
                    chunk_edges: int = SAMPLE_CHUNK) -> torch.Tensor:
     """``bool[E]``: edge e is live under at least one sample of ``x``
-    (int32[R] uint32 bits), on the operands' device."""
+    (int32[R] uint32 bits), on the operands' device. x is padded to the
+    kernels' sample count; the padding samples' columns of each mask chunk
+    are dropped before the OR."""
+    num_samples = x.shape[0]
+    xp = pad_x(x, num_samples)
     out = torch.empty(h.shape[0], dtype=torch.bool, device=h.device)
     for a in range(0, h.shape[0], chunk_edges):
         b = a + chunk_edges
-        mask = ops.fused_sample(h[a:b], lo[a:b], thr[a:b], x, variant=variant)
-        out[a:b] = mask.any(dim=1)
+        mask = ops.fused_sample(h[a:b], lo[a:b], thr[a:b], xp, variant=variant)
+        out[a:b] = mask[:, :num_samples].any(dim=1)
     return out

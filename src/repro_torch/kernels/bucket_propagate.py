@@ -18,13 +18,12 @@ in place saves one block per merge) and returns an ``int32[1]`` flag on the
 device, nonzero when ``acc`` changed. ``*_cuda`` launch the kernels,
 ``*_plain`` are their plain PyTorch versions.
 
-The cascade kernel walks the bucket's work list (one warp an item of at
-most ``edges.CHUNK`` slots, an item without slots returning at once) and
-keeps the split rows' partials in ``partial``, a scratch of at least
+Both kernels walk the bucket's work list (one warp an item of at most
+``edges.CHUNK`` slots, an item without slots returning at once) and keep
+the split rows' partials in ``partial``, a scratch of at least
 ``num_partials x j_loc`` bytes that the caller may pass in to reuse across
 launches (the serial ring allocates one for all its buckets); without it
-the wrapper allocates one. The plain versions ignore it. The propagate
-kernel still gives one warp each write row and ignores the list.
+the wrapper allocates one. The plain versions ignore it.
 """
 from __future__ import annotations
 
@@ -55,22 +54,9 @@ def _check(acc: torch.Tensor, block: torch.Tensor, rows: EdgeRows, x: torch.Tens
                          "while it writes acc)")
 
 
-def bucket_propagate_cuda(acc, block, rows: EdgeRows, x, *, variant: int) -> torch.Tensor:
-    _check(acc, block, rows, x)
-    dev = check_cuda(acc)
-    check_cuda(block)
-    changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.load(NAME)
-    build.check(NAME, fn(acc.data_ptr(), block.data_ptr(), rows.rowptr.data_ptr(),
-                         rows.nbr.data_ptr(), rows.h.data_ptr(), rows.lo.data_ptr(),
-                         rows.thr.data_ptr(), x.data_ptr(), acc.shape[0], acc.shape[1],
-                         int(variant), changed.data_ptr(), stream(dev)))
-    counters.LAUNCHES[NAME] += 1
-    return changed
-
-
-def bucket_cascade_cuda(acc, block, rows: EdgeRows, x, *, variant: int,
-                        partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _launch_merge(name: str, acc, block, rows: EdgeRows, x, variant: int,
+                  partial: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the in-place item merge ``name`` over ``rows``' work list."""
     _check(acc, block, rows, x)
     dev = check_cuda(acc)
     check_cuda(block)
@@ -80,13 +66,22 @@ def bucket_cascade_cuda(acc, block, rows: EdgeRows, x, *, variant: int,
     else:
         check_partial(partial, work, acc, block)
     changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.load(NAME_CASCADE)
-    build.check(NAME_CASCADE, fn(acc.data_ptr(), block.data_ptr(), partial.data_ptr(),
-                                 *item_operands(rows, x), work.num_items, work.num_split,
-                                 acc.shape[1], int(variant), changed.data_ptr(),
-                                 stream(dev)))
-    counters.LAUNCHES[NAME_CASCADE] += 1
+    fn = build.load(name)
+    build.check(name, fn(acc.data_ptr(), block.data_ptr(), partial.data_ptr(),
+                         *item_operands(rows, x), work.num_items, work.num_split,
+                         acc.shape[1], int(variant), changed.data_ptr(), stream(dev)))
+    counters.LAUNCHES[name] += 1
     return changed
+
+
+def bucket_propagate_cuda(acc, block, rows: EdgeRows, x, *, variant: int,
+                          partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _launch_merge(NAME, acc, block, rows, x, variant, partial)
+
+
+def bucket_cascade_cuda(acc, block, rows: EdgeRows, x, *, variant: int,
+                        partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _launch_merge(NAME_CASCADE, acc, block, rows, x, variant, partial)
 
 
 def _slot_chunks(rows: EdgeRows, x, variant: int, num_regs: int):
@@ -115,7 +110,8 @@ def merge_propagate_plain(acc, block, rows: EdgeRows, x, variant: int) -> torch.
     return changed
 
 
-def bucket_propagate_plain(acc, block, rows: EdgeRows, x, *, variant: int) -> torch.Tensor:
+def bucket_propagate_plain(acc, block, rows: EdgeRows, x, *, variant: int,
+                           partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check(acc, block, rows, x)
     counters.PLAIN_CALLS[NAME] += 1
     return merge_propagate_plain(acc, block, rows, x, variant)

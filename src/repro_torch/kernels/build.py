@@ -29,7 +29,6 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
-_SWEEP = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 # two matrices (m_in and out, or acc and block), partial, the work list (5),
 # nbr, h, lo, thr, x, num_items, num_split, num_regs, variant, changed, stream
 _ITEM_SWEEP = [_P] * 13 + [_I] * 4 + [_P, _P]
@@ -44,7 +43,7 @@ SIGNATURES = {
                      [_P, _P, _P, _P, _P, _L, _I, _I, _P]),
     # m_in, out, scratch, then _ITEM_SWEEP's from partial on, num_sweeps after variant
     "fused_sweep": ("fused_sweep", "repro_fused_sweep", [_P] * 14 + [_I] * 5 + [_P, _P]),
-    "bucket_propagate": ("bucket_propagate", "repro_bucket_propagate", _SWEEP),
+    "bucket_propagate": ("bucket_propagate", "repro_bucket_propagate", _ITEM_SWEEP),
     "bucket_cascade": ("bucket_propagate", "repro_bucket_cascade", _ITEM_SWEEP),
 }
 KERNELS = tuple(SIGNATURES)

@@ -1,7 +1,7 @@
 // Work-item sweeps over grouped rows, shared by the single path's propagate
 // and cascade sweeps (sketch_propagate.cu, cascade_step.cu), the serial
-// ring's cascade merge (bucket_propagate.cu) and its fused prologue
-// (fused_sweep.cu).
+// ring's propagate and cascade merges (bucket_propagate.cu) and its fused
+// prologue (fused_sweep.cu).
 //
 // The rows a sweep writes come cut into work items of at most CHUNK edges
 // (kernels/edges.py, WorkList). One warp takes one item:
@@ -21,7 +21,7 @@
 // Pointer roles of the callers:
 //   single sweeps:      self_in = gather = m_in, out = a fresh matrix;
 //   fused prologue:     self_in = gather = cur,  out = next (ping-pong);
-//   bucket cascade:     self_in = out = acc (IN_PLACE), gather = block.
+//   bucket merges:      self_in = out = acc (IN_PLACE), gather = block.
 // IN_PLACE: `self_in` is written during the launch, so its words are read
 // with plain coherent loads (never __ldg, ld.global.nc) and neither it nor
 // `out` is __restrict__; an item without edges returns at once (its row

@@ -2,9 +2,12 @@
 ``out[e, r] = predicate(h[e], lo[e], thr[e], x[r])`` as ``uint8[E, R]``.
 
 ``fused_sample_cuda`` launches ``csrc/fused_sample.cu``, which replaces the
-Pallas kernel ``src/repro/kernels/fused_sample.py`` (``fused_sample_pallas``);
-``fused_sample_plain`` is its plain PyTorch version. ``h``, ``lo``, ``thr``
-(int32[E]) and ``x`` (int32[R]) hold uint32 bit patterns.
+Pallas kernel ``src/repro/kernels/fused_sample.py`` (``fused_sample_pallas``):
+a thread keeps one chunk of 16 samples' x in registers (4 where R is not a
+multiple of 16) and walks the edges, one streaming store of the chunk's
+bytes an edge. It takes R a multiple of 4; ``core.fasst.sampled_by_any``
+pads x to one. ``fused_sample_plain`` is its plain PyTorch version. ``h``,
+``lo``, ``thr`` (int32[E]) and ``x`` (int32[R]) hold uint32 bit patterns.
 """
 from __future__ import annotations
 

@@ -68,9 +68,10 @@ def fused_sweep(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor, *, variant: in
 
 
 def bucket_propagate(acc: torch.Tensor, block: torch.Tensor, rows: EdgeRows,
-                     x: torch.Tensor, *, variant: int) -> torch.Tensor:
+                     x: torch.Tensor, *, variant: int,
+                     partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     fn = bucket_propagate_cuda if _kernel(acc) else bucket_propagate_plain
-    return fn(acc, block, rows, x, variant=variant)
+    return fn(acc, block, rows, x, variant=variant, partial=partial)
 
 
 def bucket_cascade(acc: torch.Tensor, block: torch.Tensor, rows: EdgeRows,

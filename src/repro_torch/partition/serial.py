@@ -23,10 +23,15 @@ Each bucket's live slots (the padding dropped) are grouped by write row once
 per partition, on the device (``kernels.edges.group_rows``), and cut into
 the work list of the merges' kernels (``kernels.edges.with_work``: items of
 at most ``CHUNK`` slots; an empty row is an item too, which the in-place
-cascade merge skips at once and the fused prologue copies). One partial
-scratch, at the largest ``num_partials`` of the state's buckets, serves
-every cascade merge: the launches are ordered on one stream. Seeds are
+merges skip at once and the fused prologue copies). One partial scratch, at
+the largest ``num_partials`` of the state's buckets, serves every propagate
+and cascade merge: the launches are ordered on one stream. Seeds are
 original vertex ids whatever the plan's relabeling.
+
+Any ``j_loc`` runs: each sim shard's block and x are ``sketch.padded_regs(j_loc)``
+wide, the padding columns VISITED and inert (``core.sketch``), and
+``canonical_matrix`` and ``visited_count`` read the real columns only. The
+partition and its plan keep the real ``j_loc``.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import torch
 from repro_torch.core import sketch
 from repro_torch.core.difuser import DiFuserConfig, InfluenceResult
 from repro_torch.core.sampling import make_x_vector
-from repro_torch.core.sketch import VISITED
+from repro_torch.core.sketch import VISITED, blank_matrix, pad_x, padded_regs
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
@@ -72,8 +77,9 @@ class _RingState:
     space). ``local_sweeps`` comm-free sweeps run before each ring sweep,
     fused into one ``fused_sweep`` call per shard when ``fuse_sweeps``;
     ``lane_fill`` is passed on to ``fused_sweep``, whose result does not
-    depend on it. ``partial`` is the split rows' scratch of every cascade
-    merge.
+    depend on it. ``partial`` is the split rows' scratch of every bucket
+    merge. ``m``, ``fresh``, ``x`` and ``partial`` are ``padded_regs(j_loc)``
+    wide.
     """
 
     def __init__(self, part: Partition2D, g: Graph, cfg: DiFuserConfig, *,
@@ -88,26 +94,28 @@ class _RingState:
         mu_v, mu_s, n_loc, j_loc = part.mu_v, part.mu_s, part.n_loc, part.j_loc
         self.owned = torch.from_numpy(part.owned_ids.astype(np.int64)).to(dev)
         self.valid = self.owned < g.n                             # (mu_v, n_loc)
-        self.x = torch.from_numpy(
-            np.ascontiguousarray(part.x_shards, dtype=np.uint32).view(np.int32)).to(dev)
+        j_pad = padded_regs(j_loc)
+        self.x = pad_x(torch.from_numpy(
+            np.ascontiguousarray(part.x_shards, dtype=np.uint32).view(np.int32)).to(dev),
+            j_loc)
         self.p_rows = _bucket_rows(part, (part.p_h, part.p_w, part.p_r, part.p_t,
                                           part.p_l), part.p_counts)
         self.c_rows = _bucket_rows(part, (part.c_h, part.c_w, part.c_r, part.c_t,
                                           part.c_l), part.c_counts)
         buckets = [r for grid in (self.p_rows, self.c_rows)
                    for step in grid for by_v in step for r in by_v]
-        self.partial = torch.empty((max(r.work.num_partials for r in buckets), j_loc),
+        self.partial = torch.empty((max(r.work.num_partials for r in buckets), j_pad),
                                    dtype=torch.int8, device=dev)
         self.p_width = [int(a.shape[-1]) for a in part.p_h]
         self.c_width = [int(a.shape[-1]) for a in part.c_h]
-        canon = ops.sketch_fill(
-            torch.zeros((part.n_pad, mu_s * j_loc), dtype=torch.int8, device=dev),
-            reg_offset=reg_offset, seed=cfg.seed)
-        self.fresh = torch.empty((mu_v, mu_s, n_loc, j_loc), dtype=torch.int8, device=dev)
+        canon = ops.sketch_fill(blank_matrix(part.n_pad, mu_s * j_loc, dev),
+                                reg_offset=reg_offset, seed=cfg.seed)
+        self.fresh = torch.full((mu_v, mu_s, n_loc, j_pad), VISITED, dtype=torch.int8,
+                                device=dev)
         for v in range(mu_v):
             rows = canon.index_select(0, self.owned[v])
             for s in range(mu_s):
-                self.fresh[v, s] = rows[:, s * j_loc:(s + 1) * j_loc]
+                self.fresh[v, s, :, :j_loc] = rows[:, s * j_loc:(s + 1) * j_loc]
         del canon
         self.m = torch.where(self.valid[:, None, :, None], self.fresh,
                              torch.full((), VISITED, dtype=torch.int8, device=dev))
@@ -116,7 +124,8 @@ class _RingState:
         """The grid in the single-device layout: ``int8[n_pad, mu_s * j_loc]``,
         rows in original-id order, columns in sorted-x order."""
         p = self.part
-        planned = self.m.permute(0, 2, 1, 3).reshape(p.mu_v * p.n_loc, p.mu_s * p.j_loc)
+        planned = self.m[..., :p.j_loc].permute(0, 2, 1, 3).reshape(p.mu_v * p.n_loc,
+                                                                    p.mu_s * p.j_loc)
         perm = torch.from_numpy(p.plan.perm[:n_pad].astype(np.int64)).to(self.device)
         return planned.index_select(0, perm)
 
@@ -139,7 +148,8 @@ class _RingState:
 
     def sweep_local(self) -> bool:
         """One comm-free propagate sweep: the kk = 0 buckets only."""
-        return self._ring(ops.bucket_propagate, self.p_rows, self.p_width, (0,))
+        return self._ring(ops.bucket_propagate, self.p_rows, self.p_width, (0,),
+                          partial=self.partial)
 
     def sweep_local_fused(self, num_sweeps: int) -> None:
         """``num_sweeps`` x ``sweep_local`` as one ``fused_sweep`` call per
@@ -162,7 +172,7 @@ class _RingState:
                 if not self.sweep_local():
                     break
         return self._ring(ops.bucket_propagate, self.p_rows, self.p_width,
-                          range(self.part.mu_v))
+                          range(self.part.mu_v), partial=self.partial)
 
     def sweep_cascade(self) -> bool:
         return self._ring(ops.bucket_cascade, self.c_rows, self.c_width,
@@ -207,7 +217,8 @@ class _RingState:
         total = torch.zeros((), dtype=torch.int64, device=self.device)
         for v in range(self.part.mu_v):
             for s in range(self.part.mu_s):
-                total += _visited_per_row(self.m[v, s])[self.valid[v]].sum()
+                blk = self.m[v, s, :, :self.part.j_loc]
+                total += _visited_per_row(blk)[self.valid[v]].sum()
         return int(total.item())
 
     def refill(self) -> None:

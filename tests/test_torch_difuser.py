@@ -87,7 +87,18 @@ def test_find_seeds_matches_reference(model, scale, num_regs, k):
     assert got.stats["cascade_sweeps"] >= k and got.stats["build_s"] >= 0
 
 
-@pytest.mark.parametrize("kw", [dict(rebuild_threshold=0.0), dict(rebuild_threshold=float("inf")),
+def test_find_seeds_matches_reference_at_chip_registers():
+    """The chip's register count, J = 1024, over K = 50 rounds: the port sums
+    the HLL statistic exactly in int64 and the reference in float32, so a
+    near-tie in the argmax could part them; the seeds must not."""
+    rg, tg = _graphs(11)
+    rc, tc = _cfgs(1024, "wc")
+    want = R._find_seeds_single(rg, 50, rc)
+    got = T.find_seeds(tg, 50, tc, device="cpu")
+    _same_result(want, got)
+
+
+@pytest.mark.parametrize("kw", [dict(rebuild_threshold=0.0),dict(rebuild_threshold=float("inf")),
                                 dict(sort_x=False), dict(max_propagate_iters=3,
                                                          max_cascade_iters=2)])
 def test_find_seeds_knobs(kw):

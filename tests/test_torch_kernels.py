@@ -487,6 +487,31 @@ def test_bucket_cascade_items_merge_in_place(n_loc, j_loc, slots, variant):
 
 
 @pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS + HUB_BUCKETS)
+def test_bucket_propagate_items_merge_in_place(n_loc, j_loc, slots, variant):
+    """The propagate merge as the in-place item walk computes it (items in a
+    random order on one matrix, split rows through partials, VISITED
+    sticky) against the reference's merge and the plain version."""
+    acc, block, sl, x = _bucket_or_hub(n_loc, j_loc, slots, seed=25)
+    acc[10, ::3] = -1              # a hub row partly VISITED
+    block[sl[1][:50]] = -1
+    rows = _rows(sl, n_loc)
+    got, changed = _emulate_work(acc, block, rows, x, variant, cascade=False, in_place=True,
+                                 seed=variant)
+    w, r, h, lo, thr = (jnp.asarray(a) for a in sl)
+    want = _bucket_sweep_propagate(jnp.asarray(acc), jnp.asarray(block), h, w, r, thr,
+                                   jnp.asarray(x), lo, REF_PRED[variant])
+    want = np.asarray(jnp.where(jnp.asarray(acc) == -1, jnp.asarray(acc), want))
+    np.testing.assert_array_equal(got, want)
+    assert (got[acc == -1] == -1).all()
+    plain = torch.from_numpy(acc.copy())
+    flag = bucket_propagate.bucket_propagate_plain(plain, torch.from_numpy(block), rows,
+                                                   _xt(x), variant=variant)
+    np.testing.assert_array_equal(got, plain.numpy())
+    assert changed == bool(flag.item())
+
+
+@pytest.mark.parametrize("variant", [0, 1])
 @pytest.mark.parametrize("num_sweeps", [1, 2, 3])
 @pytest.mark.parametrize("n_loc,j_loc,slots", BUCKETS[:4] + HUB_BUCKETS)
 def test_fused_sweep_items_equal_plain(n_loc, j_loc, slots, num_sweeps, variant):
@@ -570,14 +595,16 @@ def test_ring_kernels_match_plain_on_cuda(cuda_device, n_loc, j_loc, slots):
             fb = getattr(bucket_propagate, name + "_plain")(b, block_t, rows, xt, variant=variant)
             assert torch.equal(a, b), (name, variant)
             assert bool(fa.item()) == bool(fb.item())
-        # the cascade with a scratch passed in, larger than the list needs
-        a, b = acc_t.clone(), acc_t.clone()
+        # both merges with a scratch passed in, larger than the list needs
         partial = torch.empty((rows.work.num_partials + 3, j_loc), dtype=torch.int8,
                               device=cuda_device)
-        fa = bucket_propagate.bucket_cascade_cuda(a, block_t, rows, xt, variant=variant,
-                                                  partial=partial)
-        fb = bucket_propagate.bucket_cascade_plain(b, block_t, rows, xt, variant=variant)
-        assert torch.equal(a, b) and bool(fa.item()) == bool(fb.item())
+        for name in ("bucket_propagate", "bucket_cascade"):
+            a, b = acc_t.clone(), acc_t.clone()
+            fa = getattr(bucket_propagate, name + "_cuda")(a, block_t, rows, xt,
+                                                           variant=variant, partial=partial)
+            fb = getattr(bucket_propagate, name + "_plain")(b, block_t, rows, xt,
+                                                            variant=variant)
+            assert torch.equal(a, b) and bool(fa.item()) == bool(fb.item()), name
         for num_sweeps in (1, 2, 3):
             assert torch.equal(
                 fused_sweep.fused_sweep_cuda(acc_t, rows, xt, variant=variant,
@@ -587,3 +614,15 @@ def test_ring_kernels_match_plain_on_cuda(cuda_device, n_loc, j_loc, slots):
         assert torch.equal(
             fused_sample.fused_sample_cuda(rows.h, rows.lo, rows.thr, xt, variant=variant),
             fused_sample.fused_sample_plain(rows.h, rows.lo, rows.thr, xt, variant=variant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_samples", [36, 100, 128, 512])
+def test_fused_sample_matches_plain_on_cuda(cuda_device, num_samples):
+    """The 4-byte (36, 100) and 16-byte (128, 512) paths on a prime edge count."""
+    _, _, (_, _, h, lo, thr), _ = _bucket(8, 4, 4099, seed=14)
+    x = _bucket(8, num_samples, 0, seed=15)[3]
+    args = [_xt(a, cuda_device) for a in (h, lo, thr, x)]
+    for variant in (0, 1):
+        assert torch.equal(fused_sample.fused_sample_cuda(*args, variant=variant),
+                           fused_sample.fused_sample_plain(*args, variant=variant))

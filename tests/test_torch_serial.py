@@ -156,8 +156,8 @@ def test_backend_build_matrix_equals_single():
 
 def test_ring_state_buckets_carry_work_lists(monkeypatch):
     """Every bucket of the ring state has its work list, one partial scratch
-    at the largest ``num_partials`` serves the cascade merges, and the
-    cascade sweep passes it to every merge."""
+    at the largest ``num_partials`` serves the bucket merges, and the
+    cascade, propagate and local sweeps pass it to every merge."""
     from repro_torch.core.sampling import make_x_vector
     from repro_torch.kernels import ops
 
@@ -176,16 +176,27 @@ def test_ring_state_buckets_carry_work_lists(monkeypatch):
         assert w is not None and w.num_items >= part.n_loc
         assert int(w.item_ptr[-1]) == rows.nbr.numel()
     assert tuple(st.partial.shape) == (max(r.work.num_partials for r in buckets), part.j_loc)
-    seen = []
-    plain = ops.bucket_cascade
+    seen = {"bucket_cascade": [], "bucket_propagate": []}
 
-    def merge(*args, partial=None, **kw):
-        seen.append(partial)
-        return plain(*args, partial=partial, **kw)
+    def spy(name):
+        plain = getattr(ops, name)
 
-    monkeypatch.setattr(ops, "bucket_cascade", merge)
+        def merge(*args, partial=None, **kw):
+            seen[name].append(partial)
+            return plain(*args, partial=partial, **kw)
+        return merge
+
+    for name in seen:
+        monkeypatch.setattr(ops, name, spy(name))
     st.sweep_cascade()
-    assert seen and all(p is st.partial for p in seen)
+    st.sweep_propagate()
+    st.sweep_local()
+    shards = part.mu_v * part.mu_s
+    assert len(seen["bucket_cascade"]) == shards * sum(map(bool, st.c_width))
+    assert len(seen["bucket_propagate"]) == shards * (sum(map(bool, st.p_width))
+                                                      + bool(st.p_width[0]))
+    assert len(seen["bucket_propagate"]) > shards
+    assert all(p is st.partial for calls in seen.values() for p in calls)
 
 
 def test_resolve_backend():

@@ -42,9 +42,27 @@ Phases (each raises on failure; none is caught):
    for the sweeps and the serial ring's merges also their work lists
    (items, split rows, partials, longest item) and the bytes they gather;
    one ``bucket_propagate`` launch over each propagate bucket of a ring
-   sweep, summed; the registers of the in-place merges' instances.
+   sweep, summed; the registers of the in-place merges' instances;
+6. the influence query service at full width through the serve launcher's
+   entry point (``repro_torch.launch.serve_im.run``: rmat:20, setting 0.1,
+   wc, J=512, 1 bank, 1,000 queries of the default mix, top-k 10, batches
+   of at most 256), counters reset before it and read after; then the query
+   loop alone on the warm store (counters reset before it: the cardinality
+   kernel launched, no plain call), its spread, marginal and probe answers
+   held against the plain path's; then one insertion delta of 1,024 random
+   edges through ``InfluenceSession.apply_delta`` and a warm top-k, whose
+   seeds must equal a cold ``find_seeds`` on the post-delta graph; last the
+   host steps of the launcher and of the delta, timed one by one.
 
-It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
+Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
+store built by the ``single`` and by the ``serial`` backend, 256 mixed
+queries, an insertion delta of 256 edges, a removal delta below the
+staleness threshold and a warm top-k (answers, repair sweeps, matrices and
+seeds equal the plain path's, the warm seeds a cold ``find_seeds``'s); and
+``repro_torch.launch.im --validate --ris`` at rmat:14, K=8.
+
+It prints the ``kernels`` JSON line (``launches`` counts phase 4's or 4b's
+run, ``launches_serve`` phase 6's), the ``nvidia-smi`` line, and last the
 contract line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository around it, it exits non-zero before printing any.
 Longer output goes to ``chiprun_out/chip_smoke/``.
@@ -81,6 +99,9 @@ FULL = dict(graph="rmat:20", setting="0.1", model="wc", registers=1024)
 # and the tuner's fused prologue
 SERIAL = dict(backend="serial", mu_v=2, mu_s=2, partition="degree", local_sweeps=2,
               fuse_sweeps=True, lane_fill=256)
+# phase 6's serve configuration: the serve launcher's defaults (J = 512,
+# one bank, 1,000 queries, top-k 10, batches of 256) on phase 4's graph
+SERVE = dict(registers=512, banks=1, queries=1000, topk=10, max_batch=256, delta_edges=1024)
 SINGLE_KERNELS = ("sketch_fill", "sketch_cardinality", "sketch_propagate", "cascade_step")
 SERIAL_KERNELS = ("fused_sample", "sketch_fill", "sketch_cardinality", "fused_sweep",
                   "bucket_propagate", "bucket_cascade")
@@ -452,9 +473,9 @@ def _same_run(kern, plain, what) -> None:
     np.testing.assert_allclose(kern.scores, plain.scores, rtol=1e-6, atol=0)
 
 
-def _kernel_and_plain(fn, kernels, what):
+def _kernel_and_plain(fn, kernels, what, same=_same_run):
     """Run ``fn`` on the kernel path, then on the plain path; check which
-    path ran by the counters, and that the two agree."""
+    path ran by the counters, and that the two agree (``same``)."""
     from repro_torch.kernels import counters
 
     counters.reset()
@@ -470,7 +491,7 @@ def _kernel_and_plain(fn, kernels, what):
     t2 = time.perf_counter()
     check(not counters.LAUNCHES and set(counters.PLAIN_CALLS) == set(kernels),
           f"{what} plain path launched {dict(counters.LAUNCHES)}")
-    _same_run(kern, plain, what)
+    same(kern, plain, what)
     return kern, t1 - t0, t2 - t1
 
 
@@ -514,6 +535,102 @@ def phase_parity():
         f"{ring.seeds.tolist()} equal the single backend's at J=100 and the plain path's "
         f"(sweeps={ring.propagate_iters}, cascade sweeps={ring.stats['cascade_sweeps']}); "
         f"kernel path {t_k:.2f}s, plain path {t_p:.2f}s")
+    phase_service_parity(g)
+
+
+def _answer(result):
+    """A query result's value, comparable with ``==``."""
+    v = result.value
+    if isinstance(v, dict):
+        return (v["est"].tolist(), v["max_register"].tolist())
+    if hasattr(v, "seeds"):
+        return v.seeds.tolist()
+    return v
+
+
+def _service_path(g, spec, queries, add, num_removed):
+    """One run of the serving path on the card: a 2-bank store built
+    through ``spec``'s backend, ``queries`` through the engine, an insertion
+    delta, a removal delta below the staleness threshold, a warm top-k (the
+    lazy rebuild) and a cold ``find_seeds`` on the post-delta graph."""
+    import numpy as np
+
+    from repro_torch.graphs import GraphDelta
+    from repro_torch.runtime import InfluenceSession
+    from repro_torch.service import InfluenceEngine, Request
+
+    sess = InfluenceSession(g, spec, num_banks=2, device="cuda")
+    entry = sess.entry()
+    built = entry.matrix.cpu().numpy()
+    results = InfluenceEngine(sess.store).run([Request(entry.key, q) for q in queries])
+    ins = sess.apply_delta(GraphDelta.make(add=add))
+    repaired = entry.matrix.cpu().numpy()
+    idx = np.random.default_rng(18).choice(entry.graph.m_real, num_removed, replace=False)
+    rem = sess.apply_delta(GraphDelta.make(remove=(entry.graph.src[idx],
+                                                   entry.graph.dst[idx])))
+    check(rem.stale and not rem.rebuilt, ("removal below the threshold", rem))
+    warm = sess.find_seeds_warm(8)
+    check(not entry.stale and entry.rebuilds == 1, "the warm top-k did not rebuild")
+    cold = sess.find_seeds(8)
+    np.testing.assert_array_equal(warm.seeds, cold.seeds)
+    return dict(built=built, answers=[_answer(r) for r in results],
+                insert=(ins.repair_sweeps, ins.banks_touched, ins.rebuilt),
+                remove=(rem.removed, rem.stale, rem.staleness_frac),
+                repaired=repaired, rebuilt=entry.matrix.cpu().numpy(),
+                warm=warm.seeds.tolist(), cold=cold.seeds.tolist())
+
+
+def _same_service(kern, plain, what) -> None:
+    import numpy as np
+
+    for key in ("built", "repaired", "rebuilt"):
+        check(np.array_equal(kern[key], plain[key]), (what, key, "matrix"))
+    for key in ("answers", "insert", "remove", "warm", "cold"):
+        check(kern[key] == plain[key], (what, key))
+
+
+def phase_service_parity(g) -> None:
+    """The service on the kernel path against the plain path at rmat:14,
+    J = 256, built by the single and by the serial backend; then the
+    launcher's ``--validate --ris``."""
+    import numpy as np
+
+    from repro_torch.launch import im
+    from repro_torch.launch.serve_im import make_workload
+    from repro_torch.runtime import RunSpec
+
+    queries = make_workload(g.n, 256, k=8, seed=7)
+    rng = np.random.default_rng(17)
+    add = (rng.integers(0, g.n, 256), rng.integers(0, g.n, 256))
+    matrices = {}
+    for name, spec, kernels in (
+            ("single", RunSpec(num_registers=256), SINGLE_KERNELS),
+            ("serial", RunSpec(num_registers=256, **SERIAL),
+             SERIAL_KERNELS + ("sketch_propagate", "cascade_step"))):
+        kern, t_k, t_p = _kernel_and_plain(
+            lambda: _service_path(g, spec, queries, add, 50), kernels,
+            f"service, {name}-built store", same=_same_service)
+        matrices[name] = kern
+        log(f"[3] service, 2-bank store built by {name}: 256 queries, insertion delta of "
+            f"256 edges (repair sweeps, banks touched, rebuilt: {kern['insert']}), removal "
+            f"of 50 (removed, stale, staleness: {kern['remove']}), warm top-k 8 "
+            f"{kern['warm']} equal the plain path's and a cold find_seeds; kernel path "
+            f"{t_k:.2f}s, plain path {t_p:.2f}s")
+    for key in ("built", "repaired", "rebuilt"):
+        check(np.array_equal(matrices["single"][key], matrices["serial"][key]),
+              ("serial-built store", key))
+    check(matrices["single"]["answers"] == matrices["serial"]["answers"],
+          "serial-built store answers")
+    log("[3] the serial-built store's matrices and answers equal the single-built one's")
+    t0 = time.perf_counter()
+    out = im.run(["--graph", "rmat:14", "--setting", "0.1", "--registers", "256", "--k", "8",
+                  "--validate", "--ris"])
+    for key in ("oracle_score", "ris_oracle"):
+        check(np.isfinite(out[key]) and out[key] >= 8, (key, out[key]))
+    log(f"[3] im --validate --ris rmat:14 J=256 K=8: oracle(difuser seeds) "
+        f"{out['oracle_score']}, RIS {out['ris_time_s']}s, oracle(RIS seeds) "
+        f"{out['ris_oracle']}, quality ratio {out['oracle_score'] / out['ris_oracle']:.4f} "
+        f"({time.perf_counter() - t0:.1f}s)")
 
 
 # --------------------------------------------------------------- phase 4 ----
@@ -898,9 +1015,190 @@ def phase_timings(full: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------- phase 6 ----
+
+def phase_serve() -> dict:
+    """The serving path at full width through the serve launcher, then the
+    query loop alone, then an insertion delta and a warm top-k."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs import GraphDelta
+    from repro_torch.kernels import counters, sketch_cardinality
+    from repro_torch.launch import serve_im
+    from repro_torch.service import InfluenceEngine, Request, SpreadEstimate, TopKSeeds
+    from repro_torch.service.queries import pad_candidate_sets
+
+    argv = ["--graph", FULL["graph"], "--setting", FULL["setting"], "--model", FULL["model"],
+            "--registers", str(SERVE["registers"]), "--banks", str(SERVE["banks"]),
+            "--queries", str(SERVE["queries"]), "--topk", str(SERVE["topk"]),
+            "--max-batch", str(SERVE["max_batch"])]
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    out, sess = serve_im.run(argv, return_session=True)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    entry = sess.entry()
+    graph_before, built = sess.graph, entry.matrix.cpu().numpy()
+    log(f"[6] serve {FULL['graph']} J={SERVE['registers']} {SERVE['banks']} bank, "
+        f"{SERVE['queries']} queries: cold find_seeds {out['cold_s']:.3f}s, store build "
+        f"{out['build_s']:.3f}s ({entry.build_iters} sweeps), served in {out['wall_s']:.4f}s "
+        f"({out['qps']:.1f} qps), p50 {out['p50_ms']:.4f} ms, p99 {out['p99_ms']:.4f} ms, "
+        f"amortized {out['amortized_s'] * 1e3:.4f} ms/query, top-k cache hits "
+        f"{out['cache_hits']}, by backend {out['by_backend']}; launcher total {wall:.2f}s; "
+        f"register matrix {entry.device_bytes() / 1e9:.3f} GB")
+    log(f"[6] launcher run: launches {launches}; plain calls {plain}")
+    check(not plain, f"plain versions ran on the serving path: {plain}")
+    missing = [n for n in SINGLE_KERNELS if launches.get(n, 0) <= 0]
+    check(not missing, f"kernels not launched on the serving path: {missing}")
+
+    # the query loop alone, on the warm store, with a fresh memo
+    workload = serve_im.make_workload(entry.graph.n, SERVE["queries"], k=SERVE["topk"],
+                                      seed=7)
+    requests = [Request(entry.key, q) for q in workload]
+    engine = InfluenceEngine(sess.store, max_batch=SERVE["max_batch"])
+    counters.reset()
+    t0 = time.perf_counter()
+    results = engine.run(requests)
+    loop_s = time.perf_counter() - t0
+    loop_launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    log(f"[6] query loop alone: {len(results)} queries in {loop_s:.4f}s "
+        f"({len(results) / loop_s:.1f} qps); launches {loop_launches}; plain calls {plain}")
+    check(not plain and loop_launches.get("sketch_cardinality", 0) > 0,
+          f"query loop: launches {loop_launches}, plain {plain}")
+    reductions = [r for r in requests if not isinstance(r.query, TopKSeeds)]
+    with plain_ops():
+        plain_results = InfluenceEngine(sess.store, max_batch=SERVE["max_batch"]).run(
+            reductions)
+    got = [_answer(r) for r in results if not isinstance(r.query, TopKSeeds)]
+    check(got == [_answer(r) for r in plain_results],
+          "query answers differ from the plain path's")
+    for r in results:
+        v = r.value
+        vals = v["est"] if isinstance(v, dict) else getattr(v, "scores", v)
+        check(np.all(np.isfinite(vals)), ("non-finite answer", r.query))
+    log(f"[6] the {len(got)} spread, marginal and probe answers equal the plain path's")
+    # the merged rows of the loop's first spread batch, as the kernel saw them
+    sets = [r.query.candidates for r in requests
+            if isinstance(r.query, SpreadEstimate)][:SERVE["max_batch"]]
+    cands = pad_candidate_sets(sets, entry.graph.n_pad - 1, 8).astype(np.int64)
+    rows = entry.matrix[torch.from_numpy(cands).cuda()].amax(1)
+    cells = rows.numel()
+    card_ms = _time_ms(lambda: sketch_cardinality.cardinality_stats_cuda(rows), reps=20)
+    card_plain = _time_ms(lambda: sketch_cardinality.cardinality_stats_plain(rows), reps=5)
+    bound_ms, bound_by = _bound(cells + 8 * rows.shape[0], CARD_OPS * cells)
+    log(f"[6] sketch_cardinality at a batch's shape ({tuple(rows.shape)}): {card_ms:.4f} ms "
+        f"(plain {card_plain:.4f} ms, bound {bound_ms:.6f} ms by {bound_by})")
+
+    # one insertion delta, then a warm top-k against a cold run
+    rng = np.random.default_rng(1)
+    n = entry.graph.n
+    delta = GraphDelta.make(add=(rng.integers(0, n, SERVE["delta_edges"]),
+                                 rng.integers(0, n, SERVE["delta_edges"])))
+    counters.reset()
+    rep = sess.apply_delta(delta)
+    delta_launches = dict(counters.LAUNCHES)
+    log(f"[6] insertion delta of {SERVE['delta_edges']} edges: {rep.time_s:.3f}s, repair "
+        f"sweeps {rep.repair_sweeps}, banks touched {rep.banks_touched}, rebuilt "
+        f"{rep.rebuilt}; launches {delta_launches}")
+    check(not rep.rebuilt and rep.repair_sweeps > 0, f"delta report {rep}")
+    repaired = entry.matrix.cpu().numpy()
+    t0 = time.perf_counter()
+    warm = sess.find_seeds_warm(SERVE["topk"])
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = sess.find_seeds(SERVE["topk"])
+    cold_s = time.perf_counter() - t0
+    np.testing.assert_array_equal(warm.seeds, cold.seeds)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[6] warm top-{SERVE['topk']} after the delta {warm_s:.3f}s, seeds "
+        f"{warm.seeds.tolist()} equal a cold find_seeds on the post-delta graph "
+        f"({cold_s:.3f}s); max_memory_allocated {peak / 2**30:.2f} GiB")
+    plain_s = _serve_plain_replay(sess.spec, graph_before, delta, built, rep, repaired, warm)
+    host = _serve_host_split(entry, delta)
+    log("[6] host steps, each run once more (host clock, device work synced): " +
+        ", ".join(f"{k} {v:.3f}s" for k, v in host.items()))
+    return dict(out, launches=launches, loop_launches=loop_launches, loop_s=loop_s,
+                delta_s=rep.time_s, repair_sweeps=rep.repair_sweeps,
+                delta_launches=delta_launches, warm_s=warm_s, peak_bytes=peak,
+                card_batch_ms=card_ms, card_batch_plain_ms=card_plain, host_s=host,
+                plain_replay_s=plain_s)
+
+
+def _serve_plain_replay(spec, graph, delta, built, rep, repaired, warm) -> float:
+    """Phase 6's store build, delta and warm top-k once more on the plain
+    path, from the same graph, spec (so the same x) and delta: the built
+    and the repaired matrices, the repair's sweeps and banks, and the warm
+    seeds must equal the kernel path's. Returns the replay's seconds."""
+    import numpy as np
+
+    from repro_torch.kernels import counters
+    from repro_torch.runtime import InfluenceSession
+
+    counters.reset()
+    t0 = time.perf_counter()
+    with plain_ops():
+        sess = InfluenceSession(graph, spec, num_banks=SERVE["banks"], device="cuda")
+        check(np.array_equal(sess.entry().matrix.cpu().numpy(), built),
+              "serve: the built matrix differs from the plain path's")
+        rep_p = sess.apply_delta(delta)
+        check(np.array_equal(sess.entry().matrix.cpu().numpy(), repaired),
+              "serve: the repaired matrix differs from the plain path's")
+        warm_p = sess.find_seeds_warm(SERVE["topk"])
+    dt = time.perf_counter() - t0
+    check(not counters.LAUNCHES and set(counters.PLAIN_CALLS) == set(SINGLE_KERNELS),
+          f"serve plain replay: launches {dict(counters.LAUNCHES)}, plain "
+          f"{dict(counters.PLAIN_CALLS)}")
+    for key in ("repair_sweeps", "banks_touched", "rebuilt", "removed"):
+        check(getattr(rep_p, key) == getattr(rep, key), ("serve delta report", key))
+    np.testing.assert_array_equal(warm_p.seeds, warm.seeds)
+    np.testing.assert_array_equal(warm_p.rebuilds, warm.rebuilds)
+    check(warm_p.stats["cascade_sweeps"] == warm.stats["cascade_sweeps"],
+          "serve warm top-k cascade sweeps")
+    np.testing.assert_allclose(warm.scores, warm_p.scores, rtol=1e-6, atol=0)
+    log(f"[6] plain-path replay ({dt:.2f}s): the built matrix, the repaired matrix, repair "
+        f"sweeps {rep_p.repair_sweeps}, banks touched {rep_p.banks_touched} and the warm "
+        f"seeds equal the kernel path's")
+    return dt
+
+
+def _serve_host_split(entry, delta) -> dict:
+    """The host steps of the serve launcher and of a delta, timed one by one
+    on phase 6's graph: the graph's generation, one store key, the
+    destination sort, the model lowering with its upload and work lists, and
+    the delta's new graph (``Graph.apply_delta``'s dedup) and the match of
+    its added pairs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.difuser import edge_operands
+    from repro_torch.graphs import edge_pair_keys
+    from repro_torch.launch.common import make_graph
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    g = entry.graph
+    split = {}
+    _, split["graph generation"] = timed(lambda: make_graph(FULL["graph"], FULL["setting"], 0))
+    _, split["store key"] = timed(g.content_key)
+    _, split["destination sort"] = timed(g.sorted_by_dst)
+    _, split["edge operands"] = timed(lambda: edge_operands(g, entry.cfg, "cuda"))
+    _, split["delta's new graph"] = timed(lambda: g.apply_delta(delta))
+    r = g.m_real
+    _, split["added-pair match"] = timed(lambda: np.isin(
+        edge_pair_keys(g.src[:r], g.dst[:r], g.n_pad),
+        edge_pair_keys(delta.add_src, delta.add_dst, g.n_pad)))
+    return split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -931,12 +1229,16 @@ def main(argv=None) -> int:
         rows += phase_timings(full)
     if "5" in phases and serial:
         rows += phase_ring_timings(serial)
+    serve = phase_serve() if "6" in phases else None
+    if serve:
+        for row in rows:   # launches of each kernel on the serving path too
+            row["launches_serve"] = int(serve["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
         serial_out = {k: v for k, v in (serial or {}).items() if k != "partition"}
         (OUT / "kernels.json").write_text(json.dumps(
-            dict(rows=rows, full=full, serial=serial_out, smi=smi), indent=1))
+            dict(rows=rows, full=full, serial=serial_out, serve=serve, smi=smi), indent=1))
         print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

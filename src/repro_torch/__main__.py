@@ -1,20 +1,27 @@
-"""``python -m repro_torch im …``: the port's front door (see launch/im.py)."""
+"""``python -m repro_torch im|serve …``: the port's front doors (see
+launch/im.py and launch/serve_im.py)."""
 from __future__ import annotations
 
 import sys
+
+_COMMANDS = {"im": "run DiFuseR end to end (seed selection)",
+             "serve": "serve influence queries from a resident sketch index"}
 
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: python -m repro_torch im [args...]\n\n"
-              "commands:\n  im       run DiFuseR end to end (seed selection)\n\n"
-              "run `python -m repro_torch im --help` for its flags")
+        lines = "".join(f"  {name:<8} {what}\n" for name, what in _COMMANDS.items())
+        print("usage: python -m repro_torch {im,serve} [args...]\n\n"
+              f"commands:\n{lines}\n"
+              "run `python -m repro_torch <command> --help` for its flags")
         raise SystemExit(0 if argv else 2)
-    if argv[0] != "im":
-        raise SystemExit(f"unknown command {argv[0]!r}; options: im")
-    from repro_torch.launch.im import run
-
+    if argv[0] not in _COMMANDS:
+        raise SystemExit(f"unknown command {argv[0]!r}; options: {', '.join(_COMMANDS)}")
+    if argv[0] == "im":
+        from repro_torch.launch.im import run
+    else:
+        from repro_torch.launch.serve_im import run
     run(argv[1:])
 
 

@@ -29,11 +29,13 @@ C_HARMONIC = 1.4426950408889634  # 1 / ln 2, full-stream harmonic estimator
 
 def estimate_from_sums(sums: torch.Tensor, total_regs: int, *,
                        estimator: str = "hll") -> torch.Tensor:
-    """Finish the per-vertex estimate from ``float32[2, n_pad]`` statistics
-    (sum statistic, valid count).
+    """Finish the per-row estimate from ``float32[2, n]`` statistics (sum
+    statistic, valid count).
 
-    The statistic is always the HLL sum of 2^-M (see ``select.local_sums``);
-    ``fm_mean`` reads it as a sum of M, as the reference does."""
+    ``hll`` reads the statistic as the sum of 2^-M, ``fm_mean`` as the sum
+    of M. The single path's ``select.local_sums`` always passes the former,
+    which ``fm_mean`` then reads as the latter, as the reference does there;
+    the query path (``service.queries``) passes each its own statistic."""
     f32 = dict(dtype=torch.float32, device=sums.device)
     stat, j_valid = sums[0], sums[1]
     frac_valid = j_valid / torch.tensor(float(total_regs), **f32)

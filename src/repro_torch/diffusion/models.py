@@ -8,6 +8,13 @@ evaluates, named by ``variant``:
 * ``INTERVAL`` (wc, ic, dic): ``((X_r ^ h_e) - lo_e) < thr_e``;
 * ``REMIX`` (lt): ``(mix32(X_r ^ h_v) - lo_e) < thr_e``.
 
+Each model also carries the Monte-Carlo hooks of the reference's zoo
+(``live_edge_probability``, ``mc_sampler``: numpy draws for the oracle of
+``baselines.mc_oracle``) and ``context_free_edges``, whether an edge's
+activation law depends on that edge alone. That flag is the soundness
+condition of both fast paths of ``service.delta``: it is False for lt, whose
+in-edges share one interval partition, so every delta there rebuilds.
+
 The CUDA kernels take the variant as a template parameter; the plain
 PyTorch versions look the predicate up in ``core.sampling.PREDICATES``.
 """
@@ -50,9 +57,20 @@ class DiffusionModel:
     name: str = ""
     spec: str = ""
     variant: int = INTERVAL
+    context_free_edges: bool = True
 
     def edge_params(self, g: Graph, *, seed: int = 0) -> EdgeParams:
         raise NotImplementedError
+
+    def live_edge_probability(self, g: Graph) -> np.ndarray:
+        """float64[m] independent live probability of each edge."""
+        raise NotImplementedError
+
+    def mc_sampler(self, g: Graph) -> Callable[[np.random.Generator], np.ndarray]:
+        """A closure drawing one bool[m] live-edge sample in the graph's edge
+        order from a numpy generator (the model's host state made once)."""
+        p = self.live_edge_probability(g)
+        return lambda rng: rng.random(g.m) < p
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"{type(self).__name__}({self.spec!r})"
@@ -70,6 +88,11 @@ class WeightedCascade(DiffusionModel):
         return EdgeParams(h=edge_hash(g.src, g.dst, seed=seed),
                           lo=np.zeros(g.m, dtype=np.uint32),
                           thr=weight_to_threshold(g.weight))
+
+    def live_edge_probability(self, g: Graph) -> np.ndarray:
+        p = np.asarray(g.weight, dtype=np.float64).copy()
+        p[g.m_real:] = 0.0
+        return p
 
 
 class UniformIC(DiffusionModel):
@@ -89,6 +112,9 @@ class UniformIC(DiffusionModel):
                           lo=np.zeros(g.m, dtype=np.uint32),
                           thr=weight_to_threshold(w))
 
+    def live_edge_probability(self, g: Graph) -> np.ndarray:
+        return np.where(_real_edge_mask(g), self.p, 0.0)
+
 
 class DecayingIC(DiffusionModel):
     """``dic[:lambda]``: IC whose probability decays with a deterministic,
@@ -102,11 +128,14 @@ class DecayingIC(DiffusionModel):
         self.spec = spec
         self.decay = float(decay)
 
-    def edge_params(self, g: Graph, *, seed: int = 0) -> EdgeParams:
+    def live_edge_probability(self, g: Graph) -> np.ndarray:
         delay = edge_hash(g.src, g.dst, seed=_DELAY_SALT).astype(np.float64) / _TWO32
         w = np.asarray(g.weight, dtype=np.float64).copy()
         w[g.m_real:] = 0.0
-        w_eff = (w * np.exp(-self.decay * delay)).astype(np.float32)
+        return w * np.exp(-self.decay * delay)
+
+    def edge_params(self, g: Graph, *, seed: int = 0) -> EdgeParams:
+        w_eff = self.live_edge_probability(g).astype(np.float32)
         return EdgeParams(h=edge_hash(g.src, g.dst, seed=seed),
                           lo=np.zeros(g.m, dtype=np.uint32),
                           thr=weight_to_threshold(w_eff))
@@ -120,6 +149,7 @@ class LinearThreshold(DiffusionModel):
 
     name = "lt"
     variant = REMIX
+    context_free_edges = False
 
     def __init__(self, spec: str = "lt"):
         self.spec = spec
@@ -152,6 +182,18 @@ class LinearThreshold(DiffusionModel):
         lo = np.minimum(lo_u64, _U32_MAX).astype(np.uint32)
         return EdgeParams(h=vertex_hash(g.dst, seed=seed), lo=lo,
                           thr=width.astype(np.uint32))
+
+    def mc_sampler(self, g: Graph) -> Callable[[np.random.Generator], np.ndarray]:
+        """One uniform per vertex and draw; an edge is live where its
+        destination's uniform lands in the edge's interval."""
+        lo_f, hi_f = self._interval_fractions(g)
+        dst = g.dst.astype(np.int64)
+
+        def sample(rng: np.random.Generator) -> np.ndarray:
+            t = rng.random(g.n_pad)[dst]
+            return (lo_f <= t) & (t < hi_f)
+
+        return sample
 
 
 def _float_param(param, default: float, what: str) -> float:

@@ -2,7 +2,9 @@
 from repro_torch.graphs.generators import (barabasi_albert_graph,
                                            erdos_renyi_graph, rmat_graph)
 from repro_torch.graphs.io import load_snap_edgelist
-from repro_torch.graphs.structs import Graph, pad_to_multiple
+from repro_torch.graphs.structs import (CSR, Graph, GraphDelta, edge_pair_keys,
+                                        pad_to_multiple)
 
-__all__ = ["Graph", "pad_to_multiple", "rmat_graph", "erdos_renyi_graph",
-           "barabasi_albert_graph", "load_snap_edgelist"]
+__all__ = ["CSR", "Graph", "GraphDelta", "edge_pair_keys", "pad_to_multiple",
+           "rmat_graph", "erdos_renyi_graph", "barabasi_albert_graph",
+           "load_snap_edgelist"]

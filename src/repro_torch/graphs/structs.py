@@ -1,8 +1,9 @@
 """Graph container of the port (numpy, host side).
 
-A copy of the parts of the reference package's ``graphs/structs.py`` that
-the single-device path uses (``Graph.from_edges`` and ``sorted_by_dst``),
-kept here so that the port imports nothing of the reference package.
+A copy of the reference package's ``graphs/structs.py`` (``Graph``,
+``GraphDelta``, ``CSR``, ``edge_pair_keys``), kept here so that the port
+imports nothing of the reference package: the same inputs give byte-equal
+arrays and the same ``content_key``.
 
 Padding convention (identical to the reference): edge arrays are padded to a
 multiple of ``edge_block`` with sentinel edges ``(n_pad-1, n_pad-1, w=0)``.
@@ -11,11 +12,18 @@ Weight zero gives threshold zero, so a sentinel edge never fires.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
 
 INT = np.int32
+
+
+def edge_pair_keys(src: np.ndarray, dst: np.ndarray, n_pad: int) -> np.ndarray:
+    """Collision-free int64 key of (u, v) pairs with u, v < n_pad, shared by
+    removal matching and delta repair."""
+    return src.astype(np.int64) * np.int64(n_pad) + dst.astype(np.int64)
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int, fill) -> np.ndarray:
@@ -93,3 +101,104 @@ class Graph:
         dst = np.concatenate([self.dst[:r][order], self.dst[r:]])
         w = np.concatenate([self.weight[:r][order], self.weight[r:]])
         return dataclasses.replace(self, src=src, dst=dst, weight=w)
+
+    def csr(self) -> "CSR":
+        return CSR.from_graph(self)
+
+    def content_key(self) -> str:
+        """Stable hash of the real edge set (order-insensitive): the graph
+        part of a ``service.store.StoreKey``."""
+        r = self.m_real
+        src = self.src[:r].astype(np.int64)
+        dst = self.dst[:r].astype(np.int64)
+        w = self.weight[:r].astype(np.float32)
+        order = np.lexsort((dst, src))
+        h = hashlib.blake2b(digest_size=12)
+        h.update(np.int64(self.n).tobytes())
+        h.update(src[order].tobytes())
+        h.update(dst[order].tobytes())
+        h.update(w[order].tobytes())
+        return h.hexdigest()
+
+    def apply_delta(self, delta: "GraphDelta", *, edge_block: int = 256) -> "Graph":
+        """The updated graph: every (u, v) pair named in the removals dropped,
+        the added edges appended, padded again. Added edges that repeat a
+        surviving pair merge with compound probability (``from_edges``)."""
+        r = self.m_real
+        src = self.src[:r].astype(np.int64)
+        dst = self.dst[:r].astype(np.int64)
+        w = self.weight[:r]
+        if delta.rem_src.size:
+            keep = ~np.isin(edge_pair_keys(src, dst, self.n_pad),
+                            edge_pair_keys(delta.rem_src, delta.rem_dst, self.n_pad))
+            src, dst, w = src[keep], dst[keep], w[keep]
+        if delta.add_src.size:
+            src = np.concatenate([src, delta.add_src.astype(np.int64)])
+            dst = np.concatenate([dst, delta.add_dst.astype(np.int64)])
+            w = np.concatenate([w, delta.add_weight.astype(np.float32)])
+        return Graph.from_edges(self.n, src, dst, w, edge_block=edge_block)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphDelta:
+    """A batch of edge insertions and removals against a Graph. Vertex ids
+    lie in ``[0, n)`` of the target graph (the vertex set is fixed); a
+    removal matches every parallel (u, v) edge whatever its weight."""
+
+    add_src: np.ndarray     # int64[a]
+    add_dst: np.ndarray     # int64[a]
+    add_weight: np.ndarray  # float32[a]
+    rem_src: np.ndarray     # int64[r]
+    rem_dst: np.ndarray     # int64[r]
+
+    @staticmethod
+    def make(add=None, remove=None, default_weight: float = 0.1) -> "GraphDelta":
+        """``add``: (src, dst[, weight]) arrays; ``remove``: (src, dst)."""
+        empty_i = np.zeros(0, dtype=np.int64)
+        if add is None:
+            a_src, a_dst, a_w = empty_i, empty_i, np.zeros(0, dtype=np.float32)
+        else:
+            a_src = np.asarray(add[0], dtype=np.int64)
+            a_dst = np.asarray(add[1], dtype=np.int64)
+            a_w = (np.asarray(add[2], dtype=np.float32) if len(add) > 2
+                   else np.full(a_src.shape, default_weight, dtype=np.float32))
+        if remove is None:
+            r_src, r_dst = empty_i, empty_i
+        else:
+            r_src = np.asarray(remove[0], dtype=np.int64)
+            r_dst = np.asarray(remove[1], dtype=np.int64)
+        return GraphDelta(add_src=a_src, add_dst=a_dst, add_weight=a_w,
+                          rem_src=r_src, rem_dst=r_dst)
+
+    @property
+    def num_added(self) -> int:
+        return int(self.add_src.size)
+
+    @property
+    def num_removed(self) -> int:
+        return int(self.rem_src.size)
+
+
+@dataclasses.dataclass(frozen=True)
+class CSR:
+    """Row-pointer adjacency over the real edges (host side, for the
+    Monte-Carlo oracle). ``order`` maps the graph's real-edge order to CSR
+    order: per-edge data drawn in graph order maps over as ``data[order]``."""
+
+    n: int
+    indptr: np.ndarray   # int64[n + 1]
+    indices: np.ndarray  # int32[m_real]
+    weight: np.ndarray   # float32[m_real]
+    order: Optional[np.ndarray] = None  # int64[m_real]
+
+    @staticmethod
+    def from_graph(g: Graph) -> "CSR":
+        src = g.src[: g.m_real]
+        dst = g.dst[: g.m_real]
+        w = g.weight[: g.m_real]
+        order = np.argsort(src, kind="stable")
+        src_s, dst_s, w_s = src[order], dst[order], w[order]
+        counts = np.bincount(src_s, minlength=g.n)
+        indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        return CSR(n=g.n, indptr=indptr, indices=dst_s.astype(INT), weight=w_s,
+                   order=order)

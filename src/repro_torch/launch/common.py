@@ -26,14 +26,15 @@ def make_graph(spec: str, setting: str, seed: int):
     raise ValueError(spec)
 
 
-def add_common_im_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+def add_common_im_args(ap: argparse.ArgumentParser, *,
+                       registers_default: int = 1024) -> argparse.ArgumentParser:
     grp = ap.add_argument_group("workload")
     grp.add_argument("--graph", default="rmat:12",
                      help="rmat:<scale>|rmat-skew:<scale>|er:<n>|ba:<n>|snap:<path>")
     grp.add_argument("--setting", default="0.1",
                      help="0.005|0.01|0.1|N0.05|U0.1|wc (paper §5)")
     grp.add_argument("--model", default="wc", help="wc|ic[:p]|lt|dic[:lambda]")
-    grp.add_argument("--registers", type=int, default=1024)
+    grp.add_argument("--registers", type=int, default=registers_default)
     grp.add_argument("--seed", type=int, default=0)
     grp.add_argument("--partition", default="block",
                      help="vertex-assignment strategy of the 2-D partition: "

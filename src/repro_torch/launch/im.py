@@ -2,19 +2,27 @@
 
     PYTHONPATH=src python -m repro_torch im --graph rmat:20 --setting 0.1 \
         --k 50 --registers 1024 [--model wc] [--device cuda|cpu] \
-        [--backend auto|single|serial] [--partition degree] [--mu-v 2]
+        [--backend auto|single|serial] [--partition degree] [--mu-v 2] \
+        [--validate] [--ris]
 
 It prints what the reference launcher prints (``graph n=… m=…``, then
 ``backend=…``, with the measured partition stats on ``serial``, and
 ``difuser: …s influence(est)=… rebuilds=…/K``) and a line on where the time
 went. The ``serial`` backend runs a ``(mu_v, 2)`` shard grid, ``mu_v`` from
 ``--mu-v`` or 2, as the reference launcher does without ``--devices``.
+
+``--validate`` scores the seeds with the Monte-Carlo oracle (100
+simulations, ``rng_seed = seed + 99``) and ``--ris`` runs the RIS/IMM
+baseline (4,000 RR sets) and scores its seeds the same way
+(``repro_torch.baselines``, host numpy): the reference launcher's lines and
+``oracle_score``, ``ris_time_s``, ``ris_oracle``.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from repro_torch.baselines import influence_score, ris_find_seeds
 from repro_torch.launch.common import add_common_im_args, make_graph
 
 
@@ -24,6 +32,8 @@ def run(argv=None) -> dict:
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--mu-v", type=int, default=0,
                     help="vertex shards of the serial grid (0: 2)")
+    ap.add_argument("--validate", action="store_true", help="score seeds with the MC oracle")
+    ap.add_argument("--ris", action="store_true", help="also run the RIS/IMM baseline")
     return _run(ap.parse_args(argv))
 
 
@@ -59,9 +69,23 @@ def _run(args) -> dict:
           f"sweeps={res.propagate_iters}; "
           f"rounds: {st['rounds_s']:.3f}s cascade sweeps={st['cascade_sweeps']} "
           f"rebuild sweeps={st['rebuild_sweeps']}")
-    return dict(backend=report.backend, device=report.device, time_s=dt, n=g.n,
-                m=g.m_real, seeds=res.seeds.tolist(), difuser_score=float(res.scores[-1]),
-                rebuilds=int(res.rebuilds.sum()), propagate_iters=res.propagate_iters, **st)
+    out = dict(backend=report.backend, device=report.device, time_s=dt, n=g.n,
+               m=g.m_real, seeds=res.seeds.tolist(), difuser_score=float(res.scores[-1]),
+               rebuilds=int(res.rebuilds.sum()), propagate_iters=res.propagate_iters, **st)
+    if args.validate:
+        oracle = influence_score(g, res.seeds, num_sims=100, rng_seed=args.seed + 99,
+                                 model=args.model)
+        out["oracle_score"] = oracle
+        print(f"oracle(difuser seeds) = {oracle:.1f}")
+    if args.ris:
+        t0 = time.time()
+        rs, _ = ris_find_seeds(g, args.k, num_rr_sets=4000, rng_seed=args.seed)
+        rt = time.time() - t0
+        roracle = influence_score(g, rs, num_sims=100, rng_seed=args.seed + 99)
+        out.update(ris_time_s=round(rt, 2), ris_oracle=roracle)
+        print(f"ris/imm: {rt:.2f}s oracle={roracle:.1f} "
+              f"(quality ratio {out.get('oracle_score', roracle) / max(roracle, 1e-9):.3f})")
+    return out
 
 
 if __name__ == "__main__":

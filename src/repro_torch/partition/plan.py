@@ -51,6 +51,10 @@ class PartitionPlan:
     inv_perm: np.ndarray   # int32[n_pad] relabeled id -> original id
     predicted: Optional[PlanStats] = None
 
+    def owner_of(self, ids: np.ndarray) -> np.ndarray:
+        """Owning vertex shard of each original vertex id."""
+        return (self.perm[np.asarray(ids, dtype=np.int64)] // self.n_loc).astype(np.int32)
+
     def owned_ids(self) -> np.ndarray:
         """int32[mu_v, n_loc] original vertex id per (shard, local row)."""
         return self.inv_perm.reshape(self.mu_v, self.n_loc)
@@ -58,6 +62,20 @@ class PartitionPlan:
     def validate(self, g: Graph) -> None:
         if g.n != self.n:
             raise ValueError(f"plan built for n={self.n}, graph has n={g.n}")
+
+    @staticmethod
+    def from_permutation(n: int, mu_v: int, mu_s: int, perm: np.ndarray, *,
+                         strategy: str = "custom") -> "PartitionPlan":
+        """A plan from a saved permutation of ``[0, len(perm))``, ``mu_v``
+        dividing ``len(perm)`` (the store snapshot path)."""
+        perm = np.asarray(perm, dtype=np.int32)
+        n_pad = perm.shape[0]
+        if n_pad % mu_v != 0:
+            raise ValueError(f"len(perm)={n_pad} not divisible by mu_v={mu_v}")
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(n_pad, dtype=np.int32)
+        return PartitionPlan(strategy=strategy, n=n, n_pad=n_pad, n_loc=n_pad // mu_v,
+                             mu_v=mu_v, mu_s=mu_s, perm=perm, inv_perm=inv)
 
 
 @dataclasses.dataclass(frozen=True)

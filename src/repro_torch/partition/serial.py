@@ -51,7 +51,7 @@ from repro_torch.graphs.structs import Graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.edges import group_rows, with_work
 from repro_torch.partition.builder import Partition2D, build_partition_2d
-from repro_torch.partition.plan import plan_partition, sample_edge_sets
+from repro_torch.partition.plan import PartitionPlan, plan_partition, sample_edge_sets
 
 
 def _bucket_rows(part: Partition2D, arrays, counts: np.ndarray):
@@ -243,14 +243,17 @@ def _visited_per_row(blk: torch.Tensor) -> torch.Tensor:
 
 
 def _prepare(g: Graph, x: np.ndarray, cfg: DiFuserConfig, *, mu_v: int, mu_s: int,
-             strategy: str, pad_mode: str, device, stats: dict) -> Partition2D:
-    """Sample sets, plan and buckets on ``device``, timed into ``stats``."""
+             strategy: str, pad_mode: str, device, stats: dict,
+             plan: Optional[PartitionPlan] = None) -> Partition2D:
+    """Sample sets, plan (unless given) and buckets on ``device``, timed into
+    ``stats``."""
     t0 = time.perf_counter()
     sampled = sample_edge_sets(g, x, mu_s, seed=cfg.seed, model=cfg.model, device=device)
     _sync(device)
     t1 = time.perf_counter()
-    plan = plan_partition(g, mu_v, mu_s=mu_s, strategy=strategy, seed=cfg.seed,
-                          model=cfg.model, sampled=sampled)
+    if plan is None:
+        plan = plan_partition(g, mu_v, mu_s=mu_s, strategy=strategy, seed=cfg.seed,
+                              model=cfg.model, sampled=sampled)
     t2 = time.perf_counter()
     part = build_partition_2d(g, x, mu_v, mu_s, seed=cfg.seed, model=cfg.model,
                               plan=plan, pad_mode=pad_mode, sampled=sampled)
@@ -261,6 +264,7 @@ def _prepare(g: Graph, x: np.ndarray, cfg: DiFuserConfig, *, mu_v: int, mu_s: in
 
 def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
                            *, mu_v: int = 2, mu_s: int = 2, strategy: str = "block",
+                           plan: Optional[PartitionPlan] = None,
                            x: Optional[np.ndarray] = None, pad_mode: str = "step",
                            local_sweeps: int = 0, fuse_sweeps: bool = False,
                            lane_fill: int = 0, device=None):
@@ -268,7 +272,8 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     ``device="cpu"`` is passed. Returns ``(InfluenceResult, Partition2D)``;
     seeds are original vertex ids. ``result.stats`` holds the host clock of
     each phase (sort_s, sample_s, plan_s, buckets_s, state_s, build_s,
-    rounds_s, each ending in a device sync) and the sweep counts."""
+    rounds_s, each ending in a device sync) and the sweep counts. ``plan``
+    replaces the ``strategy``'s planning with a precomputed plan."""
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     t_sort = time.perf_counter()
@@ -277,7 +282,7 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
         x = make_x_vector(cfg.num_registers, seed=cfg.seed)
     x = np.asarray(x, dtype=np.uint32)
     stats: dict = {"sort_s": time.perf_counter() - t_sort}
-    part = _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=strategy,
+    part = _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=strategy, plan=plan,
                     pad_mode=pad_mode, device=dev, stats=stats)
     t0 = time.perf_counter()
     st = _RingState(part, g, cfg, local_sweeps=local_sweeps, fuse_sweeps=fuse_sweeps,
@@ -318,7 +323,8 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
 
 def build_matrix_ring_serial(g: Graph, config: Optional[DiFuserConfig] = None,
                              x: Optional[np.ndarray] = None, *, mu_v: int = 2,
-                             mu_s: int = 1, strategy: str = "block", pad_mode: str = "step",
+                             mu_s: int = 1, strategy: str = "block",
+                             plan: Optional[PartitionPlan] = None, pad_mode: str = "step",
                              reg_offset: int = 0, local_sweeps: int = 0,
                              fuse_sweeps: bool = False, lane_fill: int = 0, device=None):
     """Alg. 4 lines 3-6 on the serial ring: fill + propagate to a fixpoint.
@@ -331,7 +337,7 @@ def build_matrix_ring_serial(g: Graph, config: Optional[DiFuserConfig] = None,
     if x is None:
         x = np.sort(make_x_vector(cfg.num_registers, seed=cfg.seed))
     x = np.asarray(x, dtype=np.uint32)
-    part = _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=strategy,
+    part = _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=strategy, plan=plan,
                     pad_mode=pad_mode, device=dev, stats={})
     st = _RingState(part, g, cfg, reg_offset=reg_offset, local_sweeps=local_sweeps,
                     fuse_sweeps=fuse_sweeps, lane_fill=lane_fill)

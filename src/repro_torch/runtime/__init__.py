@@ -9,7 +9,8 @@
 Two backends: ``single`` (the single-device driver) and ``serial`` (the 2-D
 ring schedule on one device). ``backend="auto"`` takes ``single`` for one
 shard and ``serial`` for a grid. Both run on CUDA unless ``device="cpu"`` is
-passed, and give the same seeds.
+passed, and give the same seeds. ``InfluenceSession`` binds a graph to a
+spec and adds the resident path (the sketch store, warm seeds, deltas).
 """
 from __future__ import annotations
 
@@ -20,15 +21,19 @@ from repro_torch.runtime import single as _single  # noqa: F401  (registers)
 from repro_torch.runtime.base import (Backend, BackendCapabilities, BackendUnavailable,
                                       RunReport, get_backend, register_backend,
                                       resolve_backend)
+from repro_torch.runtime.session import InfluenceSession
 from repro_torch.runtime.spec import RunSpec
 
 
-def run(g, k: int, spec: Optional[RunSpec] = None, *, x=None, device=None) -> RunReport:
-    """Resolve the backend for ``spec`` and run Alg. 4."""
+def run(g, k: int, spec: Optional[RunSpec] = None, *, x=None, plan=None,
+        device=None) -> RunReport:
+    """Resolve the backend for ``spec`` and run Alg. 4 (``plan``: a
+    precomputed ``PartitionPlan`` for the ``serial`` backend)."""
     spec = spec if spec is not None else RunSpec()
     backend = resolve_backend(spec, g)
-    return backend.find_seeds(g, k, spec, x=x, device=device)
+    return backend.find_seeds(g, k, spec, x=x, plan=plan, device=device)
 
 
-__all__ = ["Backend", "BackendCapabilities", "BackendUnavailable", "RunReport",
-           "RunSpec", "get_backend", "register_backend", "resolve_backend", "run"]
+__all__ = ["Backend", "BackendCapabilities", "BackendUnavailable", "InfluenceSession",
+           "RunReport", "RunSpec", "get_backend", "register_backend", "resolve_backend",
+           "run"]

@@ -64,15 +64,21 @@ class Backend(abc.ABC):
 
     @abc.abstractmethod
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
-                   x: Optional[np.ndarray] = None, device=None) -> RunReport:
-        """The full Alg. 4 loop; seeds are original vertex ids."""
+                   x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
+        """The full Alg. 4 loop; seeds are original vertex ids. ``plan``: a
+        precomputed ``PartitionPlan`` for a sharded backend (the others
+        ignore it)."""
 
     @abc.abstractmethod
     def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
-                     reg_offset: int = 0, normalized: bool = False, device=None):
+                     reg_offset: int = 0, normalized: bool = False, edges=None,
+                     plan=None, device=None):
         """Fill + propagate to a fixpoint; returns ``(matrix, iters)`` with the
         matrix in the canonical layout on the device. ``normalized=True``
-        promises ``g`` sorted by destination and ``x`` sorted already."""
+        promises ``g`` sorted by destination and ``x`` sorted already.
+        ``edges``: the ``EdgeOperands`` of the normalized graph on the
+        device, a hint that only the ``single`` backend takes (a store of
+        several banks uploads them once); ``plan`` as in ``find_seeds``."""
 
 
 _BACKENDS: Dict[str, Backend] = {}

@@ -34,19 +34,21 @@ class SerialRingBackend(Backend):
         return True, ""
 
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
-                   x: Optional[np.ndarray] = None, device=None) -> RunReport:
+                   x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
         t0 = time.perf_counter()
         mu_v, mu_s = _grid(spec)
         res, part = _serial.find_seeds_ring_serial(
             g, k, spec.difuser_config(), mu_v=mu_v, mu_s=mu_s, strategy=spec.partition,
-            x=x, pad_mode=spec.pad_mode, local_sweeps=spec.local_sweeps,
+            plan=plan, x=x, pad_mode=spec.pad_mode, local_sweeps=spec.local_sweeps,
             fuse_sweeps=spec.fuse_sweeps, lane_fill=spec.lane_fill, device=device)
         return RunReport(result=res, backend=self.name, spec=spec,
                          device=str(resolve_device(device)), partition=part,
                          wall_s=time.perf_counter() - t0)
 
     def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
-                     reg_offset: int = 0, normalized: bool = False, device=None):
+                     reg_offset: int = 0, normalized: bool = False, edges=None,
+                     plan=None, device=None):
+        # ``edges`` does not apply: the ring buckets its own operands
         cfg = spec.difuser_config()
         if not normalized:
             g, x = normalize_inputs(g, cfg, x)
@@ -54,7 +56,7 @@ class SerialRingBackend(Backend):
         if np.asarray(x).shape[0] % mu_s:
             mu_s = 1   # a bank narrower than the sim grid stays whole
         m, iters, _ = _serial.build_matrix_ring_serial(
-            g, cfg, x, mu_v=mu_v, mu_s=mu_s, strategy=spec.partition,
+            g, cfg, x, mu_v=mu_v, mu_s=mu_s, strategy=spec.partition, plan=plan,
             pad_mode=spec.pad_mode, reg_offset=reg_offset,
             local_sweeps=spec.local_sweeps, fuse_sweeps=spec.fuse_sweeps,
             lane_fill=spec.lane_fill, device=device)

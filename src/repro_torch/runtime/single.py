@@ -22,7 +22,7 @@ class SingleDeviceBackend(Backend):
                                    description="single-device Alg. 4")
 
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
-                   x: Optional[np.ndarray] = None, device=None) -> RunReport:
+                   x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
         t0 = time.perf_counter()
         res = _difuser.find_seeds(g, k, spec.difuser_config(), x, device=device)
         return RunReport(result=res, backend=self.name, spec=spec,
@@ -30,10 +30,11 @@ class SingleDeviceBackend(Backend):
                          wall_s=time.perf_counter() - t0)
 
     def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
-                     reg_offset: int = 0, normalized: bool = False, device=None):
+                     reg_offset: int = 0, normalized: bool = False, edges=None,
+                     plan=None, device=None):
         m, iters, _ = _difuser.build_sketch_matrix(
             g, spec.difuser_config(), x, reg_offset=reg_offset, normalized=normalized,
-            device=device)
+            edges=edges, device=device)
         return m, iters
 
 

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from repro_torch.core.difuser import DiFuserConfig
 from repro_torch.diffusion.constants import DEFAULT_MODEL
@@ -40,3 +41,18 @@ class RunSpec:
 
     def difuser_config(self) -> DiFuserConfig:
         return DiFuserConfig(**{f: getattr(self, f) for f in _SKETCH_FIELDS})
+
+    @classmethod
+    def from_config(cls, config: Optional[DiFuserConfig] = None,
+                    base: Optional["RunSpec"] = None, **overrides) -> "RunSpec":
+        """A RunSpec with ``config``'s sketch fields over ``base`` (or the
+        defaults), then ``overrides``. ``config=None`` keeps ``base``'s
+        sketch fields."""
+        spec = base if base is not None else cls()
+        kw = {f: getattr(config, f) for f in _SKETCH_FIELDS} if config is not None else {}
+        kw.update(overrides)
+        return dataclasses.replace(spec, **kw)
+
+    def with_(self, **overrides) -> "RunSpec":
+        """``dataclasses.replace`` as a method."""
+        return dataclasses.replace(self, **overrides)

@@ -52,12 +52,17 @@ def _graph():
 @pytest.mark.parametrize("entry", ["find_seeds", "build_sketch_matrix",
                                    "find_seeds_warm", "run", "launcher", "run_serial",
                                    "find_seeds_ring_serial", "build_matrix_ring_serial",
-                                   "sample_edge_sets", "launcher_serial"])
+                                   "sample_edge_sets", "launcher_serial",
+                                   "store_get_or_build", "engine", "session_find_seeds",
+                                   "session_apply_delta", "launcher_validate",
+                                   "serve_launcher"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     from repro_torch import partition
     from repro_torch.core import difuser
-    from repro_torch.launch import im
-    from repro_torch.runtime import RunSpec, run
+    from repro_torch.graphs import GraphDelta
+    from repro_torch.launch import im, serve_im
+    from repro_torch.runtime import InfluenceSession, RunSpec, run
+    from repro_torch.service import InfluenceEngine, SketchStore
 
     g = _graph()
     cfg = difuser.DiFuserConfig(num_registers=32)
@@ -76,6 +81,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             g, np.arange(32, dtype=np.uint32), 2),
         "launcher_serial": lambda: im.run(["--graph", "rmat:6", "--k", "2", "--registers",
                                            "32", "--backend", "serial"]),
+        "store_get_or_build": lambda: SketchStore().get_or_build(g, cfg),
+        "engine": lambda: InfluenceEngine(SketchStore()).register(g, cfg),
+        "session_find_seeds": lambda: InfluenceSession(g, RunSpec(num_registers=32)
+                                                       ).find_seeds(2),
+        "session_apply_delta": lambda: InfluenceSession(g, RunSpec(num_registers=32)
+                                                        ).apply_delta(GraphDelta.make(
+                                                            add=([1], [2]))),
+        "launcher_validate": lambda: im.run(["--graph", "rmat:6", "--k", "2", "--registers",
+                                             "32", "--validate", "--ris"]),
+        "serve_launcher": lambda: serve_im.run(["--graph", "rmat:6", "--registers", "32",
+                                                "--queries", "4"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # all phases, as the check runs it
     python3 chip_smoke.py --phases 1,2    # build and kernel checks only
+    python3 chip_smoke.py --phases 1,6,7  # the serving phases (7 needs 6)
 
 Phases (each raises on failure; none is caught):
 
@@ -52,26 +53,50 @@ Phases (each raises on failure; none is caught):
    held against the plain path's; then one insertion delta of 1,024 random
    edges through ``InfluenceSession.apply_delta`` and a warm top-k, whose
    seeds must equal a cold ``find_seeds`` on the post-delta graph; last the
-   host steps of the launcher and of the delta, timed one by one.
+   host steps of the launcher and of the delta, timed one by one;
+7. async serving at phase 6's width: the serve launcher with ``--async
+   --deadline-ms 50`` on phase 4's graph (answers byte-equal to the sync
+   engine's for the same stream); phase 6's delta through
+   ``apply_delta_async`` while a spread or probe query arrives every 2 ms
+   (an answer before the swap is the old index's, after it the repaired
+   one's, whose matrix equals phase 6's); then two rmat:18 graphs at J=512
+   beside the rmat:20 index under a resident budget that holds two of the
+   three: 6 waves over the key pairs must evict, rebuild on touch and stack
+   both rmat:18 entries in one cross-entry batch, with answers equal to the
+   sync engine's and the bytes the budget covers (resident entries and the
+   cross-entry stack) under it after each budget pass; an rmat:18 index
+   rebuilt after its eviction must equal a build of it on the plain path.
+   The launch counters count the launcher and the async engines alone (the
+   sync engine's reference answers run outside them): the engines' own
+   calls launched every single-path kernel, no plain version ran, and no
+   future holds an exception.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
 queries, an insertion delta of 256 edges, a removal delta below the
 staleness threshold and a warm top-k (answers, repair sweeps, matrices and
-seeds equal the plain path's, the warm seeds a cold ``find_seeds``'s); and
-``repro_torch.launch.im --validate --ris`` at rmat:14, K=8.
+seeds equal the plain path's, the warm seeds a cold ``find_seeds``'s); the
+async engine on both paths (two rmat:14 graphs, the 256 queries byte-equal
+to the sync engine's, an insertion delta through ``apply_delta_async``
+while queries keep coming, one of them answered from inside the swap hook;
+the new index equal to a cold build); and ``repro_torch.launch.im
+--validate --ris`` at rmat:14, K=8.
 
 It prints the ``kernels`` JSON line (``launches`` counts phase 4's or 4b's
-run, ``launches_serve`` phase 6's), the ``nvidia-smi`` line, and last the
-contract line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the repository around it, it exits non-zero before printing any.
-Longer output goes to ``chiprun_out/chip_smoke/``.
+run, ``launches_serve`` phase 6's, ``launches_async`` phase 7's
+launcher and async engines), the
+``nvidia-smi`` line, and last the contract line ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the repository around it, it
+exits non-zero before printing any. Longer output goes to
+``chiprun_out/chip_smoke/``, the flight recorder's dumps (SLO breaches of
+the async engines) to its ``flight/``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -102,6 +127,9 @@ SERIAL = dict(backend="serial", mu_v=2, mu_s=2, partition="degree", local_sweeps
 # phase 6's serve configuration: the serve launcher's defaults (J = 512,
 # one bank, 1,000 queries, top-k 10, batches of 256) on phase 4's graph
 SERVE = dict(registers=512, banks=1, queries=1000, topk=10, max_batch=256, delta_edges=1024)
+# phase 7's tenancy: two more graphs at phase 6's J beside its index, each
+# about a quarter of it, under a resident budget that holds two of the three
+TENANT_GRAPH = "rmat:18"
 SINGLE_KERNELS = ("sketch_fill", "sketch_cardinality", "sketch_propagate", "cascade_step")
 SERIAL_KERNELS = ("fused_sample", "sketch_fill", "sketch_cardinality", "fused_sweep",
                   "bucket_propagate", "bucket_cascade")
@@ -548,6 +576,162 @@ def _answer(result):
     return v
 
 
+def _exact(result) -> bytes:
+    """A query result's value as bytes: equal bytes, byte-equal answers."""
+    import numpy as np
+
+    v = result.value
+    if isinstance(v, dict):
+        return v["est"].tobytes() + v["max_register"].tobytes()
+    if hasattr(v, "seeds"):
+        return b"".join(np.asarray(a).tobytes() for a in (v.seeds, v.est_gains, v.scores))
+    return np.float64(v).tobytes()
+
+
+def _results(futures, what, timeout=600.0) -> list:
+    """The results of ``futures``; fails the run if any holds an exception."""
+    out = []
+    for f in futures:
+        exc = f.exception(timeout=timeout)
+        check(exc is None, f"{what}: a future holds {exc!r}")
+        out.append(f.result(0))
+    return out
+
+
+_TIMED: dict = {}
+
+
+def _timed_engine(**kw):
+    """An ``AsyncInfluenceEngine`` that records the host clock just before
+    (``before_swap``) and just after (``swapped``) each swap, the keys of
+    each cross-entry batch, and the bytes the budget covers after each
+    budget pass (``held_bytes``: resident entries and the cross stack);
+    with ``hook_query`` it also answers that query from inside
+    ``_before_swap``, while the mutation thread waits for it."""
+    if "cls" not in _TIMED:
+        from repro_torch.service import AsyncInfluenceEngine
+
+        class Timed(AsyncInfluenceEngine):
+            def __init__(self, *a, hook_query=None, **kw):
+                self.marks, self.cross_keys, self.after_enforce = {}, [], []
+                self.hook_query, self.hook_answer = hook_query, None
+                super().__init__(*a, **kw)
+                self.store.add_swap_hook(self._mark_swap)
+
+            def _before_swap(self, key):
+                self.marks["before_swap"] = time.monotonic()
+                if self.hook_query is not None:
+                    self.hook_answer = _exact(self.submit(key, self.hook_query).result(120))
+
+            def _mark_swap(self, key, old, new):
+                self.marks["swapped"] = time.monotonic()
+
+            def _run_cross_spread(self, groups):
+                self.cross_keys.append([e.key for e, _ in groups])
+                super()._run_cross_spread(groups)
+
+            def _enforce_budget(self, protect):
+                super()._enforce_budget(protect)
+                self.after_enforce.append(self.held_bytes())
+
+        _TIMED["cls"] = Timed
+    return _TIMED["cls"](**kw)
+
+
+def _delta_under_load(aeng, key, delta, pool, *, interval_s, timeout=900.0):
+    """``delta`` through ``apply_delta_async`` while the queries of ``pool``
+    are submitted round robin, one every ``interval_s``, until the delta's
+    future resolves. Returns (report, the delta's wall seconds, [pool index,
+    host clock before the submit, host clock at resolution, future])."""
+    sent = []
+    t0 = time.monotonic()
+    fut = aeng.apply_delta_async(key, delta)
+    i = 0
+    while not fut.done() and time.monotonic() - t0 < timeout:
+        t_sub = time.monotonic()
+        f = aeng.submit(key, pool[i % len(pool)])
+        rec = [i % len(pool), t_sub, None, f]
+        f.add_done_callback(lambda _f, rec=rec: rec.__setitem__(2, time.monotonic()))
+        sent.append(rec)
+        i += 1
+        time.sleep(interval_s)
+    rep = _results([fut], "the async delta", timeout)[0]
+    wall = time.monotonic() - t0
+    aeng.drain(timeout)
+    _results([rec[3] for rec in sent], "a query during the delta", timeout)
+    return rep, wall, sent
+
+
+def _check_swap_order(marks, sent, before, after, what) -> list:
+    """A query resolved before the swap began answers version N
+    (``before``), one submitted after the swap ended answers the new
+    version (``after``), one in between either. Returns the latencies
+    (seconds) of the queries resolved while the delta was in flight."""
+    lat = []
+    for idx, t_sub, t_res, f in sent:
+        got = _exact(f.result(0))
+        if t_res < marks["before_swap"]:
+            check(got == before[idx], (what, "answer before the swap is not version N's", idx))
+            lat.append(t_res - t_sub)
+        elif t_sub > marks["swapped"]:
+            check(got == after[idx], (what, "answer after the swap is not the new version's",
+                                      idx))
+        else:
+            check(got in (before[idx], after[idx]), (what, "answer of neither version", idx))
+    return lat
+
+
+def _async_service_path(graphs, queries, which, add) -> dict:
+    """Phase 3's async case on the card: the mixed stream over two graphs
+    through the async engine (each answer byte-equal to the sync engine's),
+    then an insertion delta through ``apply_delta_async`` while queries keep
+    coming: answers of version N until the swap (one of them answered from
+    inside the swap hook, while the mutation thread waits), of the new
+    version after it, and the new index byte-equal to a cold build."""
+    import numpy as np
+
+    from repro_torch.core.difuser import DiFuserConfig
+    from repro_torch.graphs import GraphDelta
+    from repro_torch.service import (CoverageProbe, InfluenceEngine, Request, SketchStore,
+                                     SpreadEstimate)
+
+    cfg = DiFuserConfig(num_registers=256)
+    sync = InfluenceEngine(SketchStore(device="cuda"))
+    ks = [sync.register(g, cfg) for g in graphs]
+    want = [_exact(r) for r in sync.run([Request(ks[w], q) for w, q in zip(which, queries)])]
+    pool = [q for q in queries if isinstance(q, (SpreadEstimate, CoverageProbe))][:64]
+    with _timed_engine(store=SketchStore(device="cuda"), deadline_ms=50.0,
+                       hook_query=pool[0]) as aeng:
+        keys = _results([aeng.register_async(g, cfg) for g in graphs], "async register")
+        check(keys == ks, "async register keys")
+        got = [_exact(r) for r in _results(
+            [aeng.submit(keys[w], q) for w, q in zip(which, queries)], "async stream")]
+        check(got == want, "async answers differ from the sync engine's")
+        before = [_exact(r) for r in
+                  InfluenceEngine(aeng.store).run([Request(keys[0], q) for q in pool])]
+        rep, wall, sent = _delta_under_load(aeng, keys[0], GraphDelta.make(add=add), pool,
+                                            interval_s=0.001)
+        after = [_exact(r) for r in
+                 InfluenceEngine(aeng.store).run([Request(keys[0], q) for q in pool])]
+        lat = _check_swap_order(aeng.marks, sent, before, after, "phase 3 async delta")
+        check(aeng.hook_answer == before[0], "the query answered during the swap hook")
+        entry = aeng.store.entry(keys[0])
+        repaired = entry.matrix.cpu().numpy()
+        cold = SketchStore(device="cuda").get_or_build(entry.graph, cfg, entry.x)
+        check(np.array_equal(repaired, cold.matrix.cpu().numpy()),
+              "the swapped-in index differs from a cold build of the new graph")
+    return dict(answers=got, insert=(rep.repair_sweeps, rep.banks_touched, rep.rebuilt),
+                repaired=repaired, after=after, during=len(lat), sent=len(sent), wall=wall)
+
+
+def _same_async(kern, plain, what) -> None:
+    import numpy as np
+
+    check(np.array_equal(kern["repaired"], plain["repaired"]), (what, "repaired matrix"))
+    for key in ("answers", "insert", "after"):
+        check(kern[key] == plain[key], (what, key))
+
+
 def _service_path(g, spec, queries, add, num_removed):
     """One run of the serving path on the card: a 2-bank store built
     through ``spec``'s backend, ``queries`` through the engine, an insertion
@@ -591,10 +775,11 @@ def _same_service(kern, plain, what) -> None:
 
 def phase_service_parity(g) -> None:
     """The service on the kernel path against the plain path at rmat:14,
-    J = 256, built by the single and by the serial backend; then the
-    launcher's ``--validate --ris``."""
+    J = 256, built by the single and by the serial backend; the async engine
+    on both paths; then the launcher's ``--validate --ris``."""
     import numpy as np
 
+    from repro_torch.graphs import rmat_graph
     from repro_torch.launch import im
     from repro_torch.launch.serve_im import make_workload
     from repro_torch.runtime import RunSpec
@@ -622,6 +807,18 @@ def phase_service_parity(g) -> None:
     check(matrices["single"]["answers"] == matrices["serial"]["answers"],
           "serial-built store answers")
     log("[3] the serial-built store's matrices and answers equal the single-built one's")
+    g2 = rmat_graph(14, setting="0.1", seed=1)
+    which = np.random.default_rng(19).integers(0, 2, size=len(queries)).tolist()
+    kern, t_k, t_p = _kernel_and_plain(
+        lambda: _async_service_path((g, g2), queries, which, add), SINGLE_KERNELS,
+        "async service", same=_same_async)
+    log(f"[3] async engine, two rmat:14 graphs at J=256: {len(queries)} mixed queries "
+        f"byte-equal to the sync engine's; insertion delta of 256 edges through "
+        f"apply_delta_async in {kern['wall']:.3f}s (repair sweeps, banks touched, rebuilt: "
+        f"{kern['insert']}) with {kern['sent']} queries submitted meanwhile, "
+        f"{kern['during']} of them answered from version N before the swap, one from inside "
+        f"the swap hook; the new index equals a cold build; all equal on the plain path; "
+        f"kernel path {t_k:.2f}s, plain path {t_p:.2f}s")
     t0 = time.perf_counter()
     out = im.run(["--graph", "rmat:14", "--setting", "0.1", "--registers", "256", "--k", "8",
                   "--validate", "--ris"])
@@ -1036,7 +1233,7 @@ def phase_serve() -> dict:
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
-    out, sess = serve_im.run(argv, return_session=True)
+    out, sess, _ = serve_im.run(argv, return_session=True)
     wall = time.perf_counter() - t0
     launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
     entry = sess.entry()
@@ -1115,6 +1312,9 @@ def phase_serve() -> dict:
     log(f"[6] warm top-{SERVE['topk']} after the delta {warm_s:.3f}s, seeds "
         f"{warm.seeds.tolist()} equal a cold find_seeds on the post-delta graph "
         f"({cold_s:.3f}s); max_memory_allocated {peak / 2**30:.2f} GiB")
+    # phase 7 repeats this build and this delta through the async engine
+    _SERVE.update(built=built, repaired=repaired, delta=delta,
+                  insert=(rep.repair_sweeps, rep.banks_touched, rep.rebuilt))
     plain_s = _serve_plain_replay(sess.spec, graph_before, delta, built, rep, repaired, warm)
     host = _serve_host_split(entry, delta)
     log("[6] host steps, each run once more (host clock, device work synced): " +
@@ -1196,9 +1396,235 @@ def _serve_host_split(entry, delta) -> dict:
     return split
 
 
+_SERVE: dict = {}   # phase 6's built and repaired matrices and its delta, for phase 7
+
+
+@contextlib.contextmanager
+def _reuse_full_graph(module):
+    """``module.make_graph`` hands back phase 4's graph (``full_graph``)
+    instead of generating it again, for the length of a block."""
+    orig = module.make_graph
+
+    def make(spec, setting, seed):
+        if (spec, setting, seed) == (FULL["graph"], FULL["setting"], 0):
+            return full_graph()
+        return orig(spec, setting, seed)
+
+    module.make_graph = make
+    try:
+        yield
+    finally:
+        module.make_graph = orig
+
+
+@contextlib.contextmanager
+def _counted(into, what):
+    """Adds the kernel launches made inside the block to ``into`` (a
+    ``Counter``); fails if a plain version ran there. Phase 7 counts only
+    the launcher and the async engines: its sync reference answers run
+    outside such blocks."""
+    from repro_torch.kernels import counters
+
+    counters.reset()
+    yield
+    launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    check(not plain, f"plain versions ran on the async path ({what}): {plain}")
+    into.update(launches)
+
+
+def _ms(lat) -> str:
+    import numpy as np
+
+    if not lat:
+        return "n/a"
+    return (f"p50 {np.percentile(lat, 50) * 1e3:.4f} ms, "
+            f"p99 {np.percentile(lat, 99) * 1e3:.4f} ms")
+
+
+def phase_async() -> dict:
+    """Async serving at full width: the serve launcher with ``--async`` on
+    phase 6's graph and stream; phase 6's delta through
+    ``apply_delta_async`` while spread and probe queries keep coming; then
+    two rmat:18 graphs beside the rmat:20 index under a resident budget.
+    Launches are counted around the launcher (``launcher``) and the async
+    engines (``engines``) alone."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import counters
+    from repro_torch.launch import serve_im
+    from repro_torch.launch.common import make_graph
+    from repro_torch.obs import metrics
+    from repro_torch.service import (CoverageProbe, InfluenceEngine, MarginalGain, Request,
+                                     SketchStore, SpreadEstimate, TopKSeeds)
+
+    check(bool(_SERVE), "phase 7 repeats phase 6's build and delta: run phase 6 first")
+    torch.cuda.reset_peak_memory_stats()
+    launcher, engines = Counter(), Counter()
+    t_phase = time.perf_counter()
+
+    # 1. the launcher, --async, phase 6's arguments
+    argv = ["--graph", FULL["graph"], "--setting", FULL["setting"], "--model", FULL["model"],
+            "--registers", str(SERVE["registers"]), "--banks", str(SERVE["banks"]),
+            "--queries", str(SERVE["queries"]), "--topk", str(SERVE["topk"]),
+            "--max-batch", str(SERVE["max_batch"]), "--async", "--deadline-ms", "50"]
+    t0 = time.perf_counter()
+    with _reuse_full_graph(serve_im), _counted(launcher, "serve --async"):
+        out, sess, results = serve_im.run(argv, return_session=True)
+    launcher_s = time.perf_counter() - t0
+    store, entry = sess.store, sess.entry()
+    key = entry.key
+    check(np.array_equal(entry.matrix.cpu().numpy(), _SERVE["built"]),
+          "phase 7's store build differs from phase 6's")
+    workload = serve_im.make_workload(entry.graph.n, SERVE["queries"], k=SERVE["topk"],
+                                      seed=7)
+    sync = InfluenceEngine(store, max_batch=SERVE["max_batch"])
+    want = [_exact(r) for r in sync.run([Request(key, q) for q in workload])]
+    check([r.query for r in results] == workload, "the launcher's stream")
+    check([_exact(r) for r in results] == want,
+          "serve --async answers differ from the sync engine's")
+    adm = out["admission"]
+    log(f"[7] serve --async --deadline-ms 50, {FULL['graph']} J={SERVE['registers']}, "
+        f"{SERVE['queries']} queries: served in {out['wall_s']:.4f}s ({out['qps']:.1f} qps), "
+        f"end to end p50 {adm['e2e_p50_ms']:.4f} ms p95 {adm['e2e_p95_ms']:.4f} ms p99 "
+        f"{adm['e2e_p99_ms']:.4f} ms, deadline misses {adm['deadline_misses']} "
+        f"({adm['deadline_miss_rate']:.4f}), flushes {adm['flushes']}; batch latency p50 "
+        f"{out['p50_ms']:.4f} ms p99 {out['p99_ms']:.4f} ms; launcher {launcher_s:.2f}s "
+        f"(graph reused); the {len(want)} answers equal the sync engine's byte for byte")
+
+    # 2. phase 6's delta under load
+    pool = [q for q in workload if isinstance(q, (SpreadEstimate, CoverageProbe))][:256]
+    before = [_exact(r) for r in sync.run([Request(key, q) for q in pool])]
+    with _counted(engines, "the async delta"), _timed_engine(
+            engine=InfluenceEngine(store, max_batch=SERVE["max_batch"]),
+            deadline_ms=50.0) as aeng:
+        rep, delta_wall, sent = _delta_under_load(aeng, key, _SERVE["delta"], pool,
+                                                  interval_s=0.002)
+        marks = dict(aeng.marks)
+    repaired = store.entry(key).matrix.cpu().numpy()
+    check(np.array_equal(repaired, _SERVE["repaired"]),
+          "the async delta's matrix differs from phase 6's repaired matrix")
+    check((rep.repair_sweeps, rep.banks_touched, rep.rebuilt) == _SERVE["insert"],
+          ("async delta report", rep))
+    after = [_exact(r) for r in sync.run([Request(key, q) for q in pool])]
+    lat = _check_swap_order(marks, sent, before, after, "phase 7 delta")
+    swap_s = marks["swapped"] - marks["before_swap"]
+    log(f"[7] async insertion delta of {SERVE['delta_edges']} edges: {rep.time_s:.3f}s in "
+        f"apply_delta, {delta_wall:.3f}s from submit to its future, swap {swap_s * 1e3:.4f} ms "
+        f"(repair sweeps {rep.repair_sweeps}, banks touched {rep.banks_touched}); "
+        f"{len(sent)} spread and probe queries submitted meanwhile, {len(lat)} answered "
+        f"from version N while the delta was in flight ({_ms(lat)}); every answer before the "
+        f"swap is version N's, after it the repaired index's, which equals phase 6's")
+
+    # 3. tenancy: two rmat:18 graphs beside the rmat:20 index, under a budget
+    cfg = entry.cfg
+    t0 = time.perf_counter()
+    g18 = [make_graph(TENANT_GRAPH, FULL["setting"], seed) for seed in (1, 2)]
+    keys = [key] + [sync.register(g, cfg) for g in g18]
+    sizes = [store.entry(k).device_bytes() for k in keys]
+    budget = int(sizes[0] + 1.5 * sizes[1])
+    check(budget < sum(sizes), "the budget must hold fewer than the three indexes")
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    waves = []
+    for w, (a, b) in enumerate([(0, 1), (1, 2), (2, 0)] * 2):   # round robin over the keys
+        # a warm top-k against a first: while the serve thread runs it, the
+        # rest of the wave queues up, so its buckets of both keys flush
+        # together (the cross-entry batch)
+        wave = [(a, TopKSeeds(SERVE["topk"] + w))]
+        for i in range(48):
+            k = (a, b)[i % 2]
+            n = store.entry(keys[k]).graph.n
+            kind = int(rng.integers(0, 5))
+            if kind < 3:
+                q = SpreadEstimate(rng.integers(0, n, int(rng.integers(1, 9))))
+            elif kind == 3:
+                q = MarginalGain(int(rng.integers(0, n)), rng.integers(0, n, 3))
+            else:
+                q = CoverageProbe(rng.integers(0, n, 3))
+            wave.append((k, q))
+        waves.append(wave)
+    want = [[_exact(r) for r in sync.run([Request(keys[k], q) for k, q in wave])]
+            for wave in waves]
+    evictions0 = metrics.counter("store.evictions").value
+    rebuilt = metrics.histogram("store.evicted_rebuild_s", unit="s")
+    rebuilt0 = (rebuilt.count, rebuilt.total)
+    t0 = time.perf_counter()
+    with _counted(engines, "tenancy"), _timed_engine(
+            engine=InfluenceEngine(store, max_batch=SERVE["max_batch"]),
+            deadline_ms=50.0, max_resident_mb=budget / 2**20) as aeng:
+        check(aeng.evictor.budget_bytes <= budget, "budget")
+        window_s = aeng.deadline_ms / 4e3
+        for wave, wave_want in zip(waves, want):
+            futs = [aeng.submit(keys[wave[0][0]], wave[0][1])]
+            time.sleep(2 * window_s)        # the top-k's bucket has flushed
+            futs += [aeng.submit(keys[k], q) for k, q in wave[1:]]
+            got = [_exact(r) for r in _results(futs, "tenancy stream")]
+            check(got == wave_want, "a tenancy answer differs from the sync engine's")
+            aeng.drain(600)
+        after_enforce, cross = list(aeng.after_enforce), list(aeng.cross_keys)
+        budget_bytes = aeng.evictor.budget_bytes
+    tenancy_s = time.perf_counter() - t0
+    evictions = metrics.counter("store.evictions").value - evictions0
+    rebuilds, rebuild_s = rebuilt.count - rebuilt0[0], rebuilt.total - rebuilt0[1]
+    cross_18 = sum(1 for ks in cross if keys[1] in ks and keys[2] in ks)
+    check(after_enforce and max(after_enforce) <= budget_bytes,
+          f"held bytes over the budget after a budget pass: {after_enforce}")
+    check(evictions >= 1 and rebuilds >= 1 and cross_18 >= 1,
+          f"tenancy: evictions {evictions}, rebuilds {rebuilds}, cross batches {cross}")
+    log(f"[7] tenancy: {FULL['graph']} ({sizes[0] / 1e9:.3f} GB) and two {TENANT_GRAPH} "
+        f"({sizes[1] / 1e9:.3f}, {sizes[2] / 1e9:.3f} GB) at J={SERVE['registers']} under "
+        f"{budget_bytes / 1e9:.3f} GB ({setup_s:.2f}s to generate and build the two): "
+        f"{sum(len(w) for w in waves)} queries in {len(waves)} waves in {tenancy_s:.2f}s, "
+        f"evictions {evictions}, evicted rebuilds {rebuilds} ({rebuild_s:.3f}s), "
+        f"cross-entry batches {len(cross)} ({cross_18} with both {TENANT_GRAPH} entries), held "
+        f"bytes (resident and the cross stack) after each of {len(after_enforce)} budget passes "
+        f"at most {max(after_enforce) / 1e9:.3f} GB; every answer equals the sync engine's")
+
+    # an rmat:18 index rebuilt after its eviction against a plain-path build
+    k18 = next((k for k in keys[1:] if not store.is_evicted(k) and store.entry(k).evictions),
+               keys[1])
+    e18 = store.entry(k18)       # rebuilt here, outside the counts, if still evicted
+    check(e18.evictions >= 1, f"{TENANT_GRAPH} entry {k18} was never evicted")
+    counters.reset()
+    t0 = time.perf_counter()
+    with plain_ops():
+        plain18 = SketchStore(num_banks=store.num_banks, spec=store.spec,
+                              device="cuda").get_or_build(e18.graph, e18.cfg, e18.x)
+    plain18_s = time.perf_counter() - t0
+    check(not counters.LAUNCHES and set(counters.PLAIN_CALLS) >= {"sketch_fill",
+                                                                 "sketch_propagate"},
+          f"plain {TENANT_GRAPH} build: launches {dict(counters.LAUNCHES)}, plain "
+          f"{dict(counters.PLAIN_CALLS)}")
+    check(np.array_equal(plain18.matrix.cpu().numpy(), e18.matrix.cpu().numpy()),
+          f"the {TENANT_GRAPH} index rebuilt after eviction differs from the plain path's")
+    log(f"[7] the {TENANT_GRAPH} index rebuilt after {e18.evictions} eviction(s) equals its "
+        f"build on the plain path ({plain18_s:.2f}s)")
+
+    # 4. the phase's launches: the launcher's and the async engines' own
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[7] launches of serve --async {dict(launcher)}; of the async engines "
+        f"{dict(engines)}; max_memory_allocated {peak / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    missing = [n for n in SINGLE_KERNELS if engines.get(n, 0) <= 0]
+    check(not missing, f"kernels not launched by the async engines: {missing}")
+    return dict(launches=dict(launcher + engines), launcher_launches=dict(launcher),
+                engine_launches=dict(engines), qps=out["qps"], e2e_p50_ms=adm["e2e_p50_ms"],
+                e2e_p99_ms=adm["e2e_p99_ms"], miss_rate=adm["deadline_miss_rate"],
+                flushes=adm["flushes"], delta_s=rep.time_s, delta_wall_s=delta_wall,
+                swap_s=swap_s, in_flight=len(lat), sent=len(sent),
+                in_flight_p50_ms=float(np.percentile(lat, 50) * 1e3) if lat else None,
+                in_flight_p99_ms=float(np.percentile(lat, 99) * 1e3) if lat else None,
+                evictions=evictions, rebuilds=rebuilds, rebuild_s=rebuild_s,
+                cross_batches=len(cross), cross_18=cross_18, budget_bytes=budget_bytes,
+                peak_bytes=peak, phase_s=time.perf_counter() - t_phase)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1210,6 +1636,9 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside the repository)
+
+    # SLO breaches and admission stalls dump the flight ring: beside the output
+    os.environ.setdefault("REPRO_TORCH_FLIGHT_DIR", str(OUT / "flight"))
 
     smi = nvidia_smi_line()
     log(f"[1] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1233,12 +1662,17 @@ def main(argv=None) -> int:
     if serve:
         for row in rows:   # launches of each kernel on the serving path too
             row["launches_serve"] = int(serve["launches"].get(row["name"], 0))
+    served_async = phase_async() if "7" in phases else None
+    if served_async:
+        for row in rows:   # and on the async path
+            row["launches_async"] = int(served_async["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
         serial_out = {k: v for k, v in (serial or {}).items() if k != "partition"}
         (OUT / "kernels.json").write_text(json.dumps(
-            dict(rows=rows, full=full, serial=serial_out, serve=serve, smi=smi), indent=1))
+            dict(rows=rows, full=full, serial=serial_out, serve=serve,
+                 served_async=served_async, smi=smi), indent=1))
         print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ from repro_torch.core.sampling import make_x_vector
 from repro_torch.core.simulate import propagate_to_fixpoint
 from repro_torch.core.sketch import (VISITED, blank_matrix, count_visited, pad_columns,
                                      pad_x, real_columns)
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.diffusion.constants import DEFAULT_MODEL
 from repro_torch.graphs.structs import Graph
@@ -105,11 +105,6 @@ def _as_matrix(matrix, num_regs: int, device) -> torch.Tensor:
     if isinstance(matrix, np.ndarray):
         matrix = torch.from_numpy(np.require(matrix, np.int8, ["C", "W"]))
     return pad_columns(matrix.to(device), num_regs)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _build(edges, x_t, n_real, *, num_regs, cfg, variant, reg_offset=0):
@@ -194,17 +189,17 @@ def find_seeds(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
     edges = edge_operands(g, cfg, dev)
     variant = resolve_model(cfg.model).variant
     x_t = x_tensor(x, dev)
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     stats = {"prep_s": t0 - t_prep}
     m, build_iters = _build(edges, x_t, g.n, num_regs=cfg.num_registers, cfg=cfg,
                             variant=variant)
-    _sync(dev)
+    synchronize(dev)
     t1 = time.perf_counter()
     seeds, gains, scores, rebuilds = _seed_rounds(
         m, edges, x_t, k=k, n_real=g.n, num_regs=cfg.num_registers, cfg=cfg,
         variant=variant, stats=stats)
-    _sync(dev)
+    synchronize(dev)
     stats.update(build_s=t1 - t0, rounds_s=time.perf_counter() - t1)
     return InfluenceResult(seeds=seeds, est_gains=gains, scores=scores,
                            rebuilds=rebuilds, propagate_iters=build_iters, x=x,
@@ -230,7 +225,7 @@ def find_seeds_warm(g: Graph, k: int, config: Optional[DiFuserConfig] = None, *,
         _as_matrix(matrix, x.shape[0], dev), edges, x_tensor(x, dev), k=k, n_real=g.n,
         num_regs=x.shape[0], cfg=cfg, variant=resolve_model(cfg.model).variant,
         stats=stats)
-    _sync(dev)
+    synchronize(dev)
     stats.update(build_s=0.0, rounds_s=time.perf_counter() - t0)
     return InfluenceResult(seeds=seeds, est_gains=gains, scores=scores,
                            rebuilds=rebuilds, propagate_iters=0, x=x, stats=stats)

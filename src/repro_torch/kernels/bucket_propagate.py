@@ -70,7 +70,7 @@ def _launch_merge(name: str, acc, block, rows: EdgeRows, x, variant: int,
     build.check(name, fn(acc.data_ptr(), block.data_ptr(), partial.data_ptr(),
                          *item_operands(rows, x), work.num_items, work.num_split,
                          acc.shape[1], int(variant), changed.data_ptr(), stream(dev)))
-    counters.LAUNCHES[name] += 1
+    counters.launched(name)
     return changed
 
 
@@ -113,14 +113,14 @@ def merge_propagate_plain(acc, block, rows: EdgeRows, x, variant: int) -> torch.
 def bucket_propagate_plain(acc, block, rows: EdgeRows, x, *, variant: int,
                            partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check(acc, block, rows, x)
-    counters.PLAIN_CALLS[NAME] += 1
+    counters.plain_called(NAME)
     return merge_propagate_plain(acc, block, rows, x, variant)
 
 
 def bucket_cascade_plain(acc, block, rows: EdgeRows, x, *, variant: int,
                          partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check(acc, block, rows, x)
-    counters.PLAIN_CALLS[NAME_CASCADE] += 1
+    counters.plain_called(NAME_CASCADE)
     vis = (acc == VISITED).to(torch.int32)
     block_vis = block == VISITED
     for w, r, live in _slot_chunks(rows, x, variant, acc.shape[1]):

@@ -12,6 +12,11 @@ library is never loaded. Nothing is built when the package is imported:
 ``load`` builds its library at first use, and ``build`` starts one ``nvcc``
 for each missing library, all at once. ``nvcc`` is ``$CUDA_HOME/bin/nvcc``
 or the one on ``PATH``; without it, or when a build fails, these raise.
+
+Threads: the async engine's serving and mutation threads may reach the same
+kernel first together. ``load`` holds one lock over its check, the build
+and the ``CDLL``, so a library is built and loaded once; every ``nvcc``
+writes a temporary file of its own and renames it into place.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import uuid
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -50,6 +57,7 @@ KERNELS = tuple(SIGNATURES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -79,7 +87,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         lib = library_path(name)
         if lib.exists():
             continue
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        tmp = lib.with_name(f"{lib.stem}.{uuid.uuid4().hex}.tmp.so")
         cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -98,17 +106,18 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 def load(name: str):
     """The C entry point of kernel ``name``, built at first use."""
-    fn = _LOADED.get(name)
-    if fn is None:
-        source, symbol, argtypes = SIGNATURES[name]
-        lib = library_path(source)
-        if not lib.exists():
-            build([source])
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LOADED[name] = fn
-    return fn
+    with _LOAD_LOCK:
+        fn = _LOADED.get(name)
+        if fn is None:
+            source, symbol, argtypes = SIGNATURES[name]
+            lib = library_path(source)
+            if not lib.exists():
+                build([source])
+            fn = getattr(ctypes.CDLL(str(lib)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LOADED[name] = fn
+        return fn
 
 
 def check(name: str, status: int) -> None:

@@ -26,14 +26,14 @@ def cascade_sweep_cuda(m: torch.Tensor, edges: EdgeOperands, x: torch.Tensor, *,
                        variant: int):
     check_sweep(m, edges, x)
     out, changed = launch_item_sweep(NAME, m, edges.by_dst, x, variant)
-    counters.LAUNCHES[NAME] += 1
+    counters.launched(NAME)
     return out, changed
 
 
 def cascade_sweep_plain(m: torch.Tensor, edges: EdgeOperands, x: torch.Tensor, *,
                         variant: int):
     check_sweep(m, edges, x)
-    counters.PLAIN_CALLS[NAME] += 1
+    counters.plain_called(NAME)
     pred = PREDICATES[int(variant)]
     num_regs = m.shape[1]
     xs = as_u32(x)[None, :]

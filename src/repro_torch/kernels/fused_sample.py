@@ -48,13 +48,13 @@ def fused_sample_cuda(h, lo, thr, x, *, variant: int) -> torch.Tensor:
     build.check(NAME, fn(h.data_ptr(), lo.data_ptr(), thr.data_ptr(), x.data_ptr(),
                          out.data_ptr(), h.shape[0], num_samples, int(variant),
                          stream(h.device)))
-    counters.LAUNCHES[NAME] += 1
+    counters.launched(NAME)
     return out
 
 
 def fused_sample_plain(h, lo, thr, x, *, variant: int) -> torch.Tensor:
     _check(h, lo, thr, x)
-    counters.PLAIN_CALLS[NAME] += 1
+    counters.plain_called(NAME)
     pred = PREDICATES[int(variant)]
     num_samples = x.shape[0]
     xs = as_u32(x)[None, :]

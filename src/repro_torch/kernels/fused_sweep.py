@@ -49,7 +49,7 @@ def fused_sweep_cuda(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor, *, varian
     build.check(NAME, fn(m.data_ptr(), out.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
                          *item_operands(rows, x), work.num_items, work.num_split, m.shape[1],
                          int(variant), int(num_sweeps), changed.data_ptr(), stream(dev)))
-    counters.LAUNCHES[NAME] += 1
+    counters.launched(NAME)
     return out
 
 
@@ -57,7 +57,7 @@ def fused_sweep_plain(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor, *, varia
                       num_sweeps: int = 1, lane_fill: int = 0) -> torch.Tensor:
     check_rows(m, rows, x)
     _check_counts(num_sweeps, lane_fill)
-    counters.PLAIN_CALLS[NAME] += 1
+    counters.plain_called(NAME)
     cur = m
     for _ in range(int(num_sweeps)):
         nxt = cur.clone()

@@ -27,13 +27,13 @@ def cardinality_stats_cuda(m: torch.Tensor) -> torch.Tensor:
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
     fn = build.load(NAME)
     build.check(NAME, fn(m.data_ptr(), out.data_ptr(), n, j, stream(dev)))
-    counters.LAUNCHES[NAME] += 1
+    counters.launched(NAME)
     return out
 
 
 def cardinality_stats_plain(m: torch.Tensor) -> torch.Tensor:
     check_matrix(m)
-    counters.PLAIN_CALLS[NAME] += 1
+    counters.plain_called(NAME)
     n, num_regs = m.shape
     out = torch.empty((2, n), dtype=torch.float32, device=m.device)
     step = max(1, PLAIN_STEP // max(num_regs, 1))

@@ -25,13 +25,13 @@ def sketch_fill_cuda(m: torch.Tensor, *, reg_offset: int = 0, seed: int = 0) -> 
     fn = build.load(NAME)
     build.check(NAME, fn(m.data_ptr(), out.data_ptr(), n, j, reg_offset & MASK32,
                          seed & MASK32, stream(dev)))
-    counters.LAUNCHES[NAME] += 1
+    counters.launched(NAME)
     return out
 
 
 def sketch_fill_plain(m: torch.Tensor, *, reg_offset: int = 0, seed: int = 0) -> torch.Tensor:
     check_matrix(m)
-    counters.PLAIN_CALLS[NAME] += 1
+    counters.plain_called(NAME)
     n, num_regs = m.shape
     j = ((torch.arange(num_regs, dtype=torch.int64, device=m.device) + reg_offset)
          & MASK32)[None, :]

@@ -1,11 +1,15 @@
-"""Shared CLI surface of the port's IM launcher: the workload flags and the
-graph-spec parser."""
+"""Shared CLI surface of the port's launchers: the workload flags, the
+graph-spec parser, and the ``--trace``/``--metrics`` observability flags
+with the ``observe`` context that serves them."""
 from __future__ import annotations
 
 import argparse
+import contextlib
+import time
 
 from repro_torch.graphs import (barabasi_albert_graph, erdos_renyi_graph,
                                 load_snap_edgelist, rmat_graph)
+from repro_torch.obs import metrics, trace
 
 
 def make_graph(spec: str, setting: str, seed: int):
@@ -44,3 +48,43 @@ def add_common_im_args(ap: argparse.ArgumentParser, *,
     grp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                      help="cuda runs the CUDA kernels; cpu their plain versions")
     return ap
+
+
+def add_obs_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The ``--trace``/``--metrics`` group that ``observe`` reads."""
+    obs = ap.add_argument_group("observability (repro_torch.obs)")
+    obs.add_argument("--trace", default=None, metavar="OUT.json",
+                     help="record spans and write Chrome trace-event JSON "
+                          "(open in ui.perfetto.dev; one lane per phase)")
+    obs.add_argument("--metrics", default=None, metavar="OUT.jsonl",
+                     help="write a JSONL metrics snapshot (counters, gauges, "
+                          "histograms) at exit")
+    return ap
+
+
+@contextlib.contextmanager
+def observe(args):
+    """Wrap a launcher run in what ``--trace``/``--metrics`` ask for: start
+    the span recorder when a trace path is given; at exit write the Chrome
+    trace and the metrics snapshot, and print the span coverage (seconds in
+    top-level spans over wall seconds). Without the flags nothing is
+    recorded or written."""
+    trace_path, metrics_path = args.trace, args.metrics
+    rec = trace.get_recorder()
+    if trace_path:
+        rec.start()
+    t0 = time.perf_counter()
+    try:
+        yield rec
+    finally:
+        wall = time.perf_counter() - t0
+        if trace_path:
+            rec.stop()
+            n = rec.save_chrome_trace(trace_path)
+            cov = rec.top_level_seconds() / wall if wall > 0 else 0.0
+            print(f"trace: {n} spans -> {trace_path} "
+                  f"(lanes: {', '.join(sorted(rec.phases_seen()))}; "
+                  f"span coverage {cov * 100:.1f}% of {wall:.2f}s wall)")
+        if metrics_path:
+            n = metrics.registry().write_jsonl(metrics_path)
+            print(f"metrics: {n} series -> {metrics_path}")

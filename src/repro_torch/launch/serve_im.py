@@ -9,8 +9,15 @@ choice, pushes a mixed stream of TopKSeeds / SpreadEstimate / MarginalGain /
 CoverageProbe requests through the batched ``InfluenceEngine``, and reports
 qps, p50/p99 and the amortized cost of a query against the cold
 ``find_seeds``. The printed lines and the returned keys are the reference
-launcher's (``src/repro/launch/serve_im.py``), without its asynchronous,
-device-residency and mesh ones, which the port does not have yet.
+launcher's (``src/repro/launch/serve_im.py``), without its device-residency
+and mesh ones, which the port does not have yet.
+
+``--async`` serves the stream through the ``AsyncInfluenceEngine`` (futures,
+deadline-driven micro-batching with a flush window of ``--deadline-ms`` / 4,
+``--max-resident`` MB of resident store bytes), whose answers are byte-equal
+to the synchronous engine's; it prints the ``async:`` line and returns the
+``admission`` summary. ``--trace OUT.json`` and ``--metrics OUT.jsonl``
+record the run's spans and metrics.
 """
 from __future__ import annotations
 
@@ -19,9 +26,9 @@ import time
 
 import numpy as np
 
-from repro_torch.launch.common import add_common_im_args, make_graph
-from repro_torch.service import (CoverageProbe, InfluenceEngine, MarginalGain,
-                                 SketchStore, SpreadEstimate, TopKSeeds,
+from repro_torch.launch.common import add_common_im_args, add_obs_args, make_graph, observe
+from repro_torch.service import (AsyncInfluenceEngine, CoverageProbe, InfluenceEngine,
+                                 MarginalGain, SketchStore, SpreadEstimate, TopKSeeds,
                                  summarize_latencies)
 
 
@@ -47,8 +54,9 @@ def make_workload(n: int, num_queries: int, *, k: int, seed: int,
 
 def run(argv=None, *, return_session: bool = False):
     """Parse ``argv`` and serve. Returns the summary dict, or ``(summary,
-    InfluenceSession)`` with ``return_session=True`` (the session holds the
-    warm store, for a caller that goes on with deltas)."""
+    InfluenceSession, results)`` with ``return_session=True``: the session
+    holds the warm store, for a caller that goes on with deltas, and
+    ``results`` are the stream's ``QueryResult``s in submission order."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch serve")
     add_common_im_args(ap, registers_default=512)
     ap.add_argument("--banks", type=int, default=1)
@@ -61,9 +69,23 @@ def run(argv=None, *, return_session: bool = False):
     ap.add_argument("--queries", type=int, default=1000)
     ap.add_argument("--topk", type=int, default=10, help="k of the TopKSeeds queries")
     ap.add_argument("--max-batch", type=int, default=256)
+    ap.add_argument("--async", dest="serve_async", action="store_true",
+                    help="serve through the AsyncInfluenceEngine: futures and "
+                         "deadline-driven micro-batching (answers byte-equal to "
+                         "the synchronous engine's)")
+    ap.add_argument("--deadline-ms", type=float, default=50.0,
+                    help="end-to-end deadline of a query under --async (flush "
+                         "window = deadline / 4; misses are counted and watched)")
+    ap.add_argument("--max-resident", type=float, default=0.0,
+                    help="budget in MB of the store's resident bytes (and the "
+                         "cross-entry stack) under --async "
+                         "(0: none); cost-aware eviction keeps the store under it")
     ap.add_argument("--save", default="", help="write the index npz here")
-    out, sess = _run(ap.parse_args(argv))
-    return (out, sess) if return_session else out
+    add_obs_args(ap)
+    args = ap.parse_args(argv)
+    with observe(args):
+        out, sess, results = _run(args)
+    return (out, sess, results) if return_session else out
 
 
 def _run(args):
@@ -74,7 +96,9 @@ def _run(args):
     print(f"graph n={g.n:,} m={g.m_real:,} model={args.model}")
     spec = RunSpec(num_registers=args.registers, seed=args.seed, model=args.model,
                    backend=args.backend, mu_v=1, mu_s=1,
-                   partition=args.partition if args.partition else "block")
+                   partition=args.partition if args.partition else "block",
+                   serve_async=args.serve_async, deadline_ms=args.deadline_ms,
+                   max_resident_mb=args.max_resident)
     store = SketchStore(num_banks=args.banks, spec=spec, device=args.device)
     sess = InfluenceSession(g, spec, store=store, device=args.device)
     print(f"device={sess.device}")
@@ -102,11 +126,25 @@ def _run(args):
               f"({plan.mu_v} row blocks x {shard_bytes} B resident)")
 
     workload = make_workload(g.n, args.queries, k=args.topk, seed=args.seed + 7)
-    for q in workload:
-        engine.submit(key, q)
-    t0 = time.perf_counter()
-    results = engine.run()
-    wall_s = time.perf_counter() - t0
+    admission = {}
+    if spec.serve_async:
+        with AsyncInfluenceEngine(engine, spec=spec) as aeng:
+            t0 = time.perf_counter()
+            futures = [aeng.submit(key, q) for q in workload]
+            aeng.drain()
+            wall_s = time.perf_counter() - t0
+            results = [f.result() for f in futures]
+            admission = aeng.admission_summary()
+        print(f"async: deadline {aeng.deadline_ms:.0f}ms  "
+              f"e2e p99 {admission['e2e_p99_ms']:.2f}ms  "
+              f"miss rate {admission['deadline_miss_rate']:.1%}  "
+              f"flushes {admission['flushes']}")
+    else:
+        for q in workload:
+            engine.submit(key, q)
+        t0 = time.perf_counter()
+        results = engine.run()
+        wall_s = time.perf_counter() - t0
     stats = summarize_latencies(results)
 
     amortized = wall_s / max(args.queries, 1)
@@ -124,8 +162,12 @@ def _run(args):
     # overwrite the wall-clock qps printed above
     out = {**stats, "cold_s": cold_s, "build_s": entry.build_time_s, "wall_s": wall_s,
            "qps": args.queries / wall_s, "amortized_s": amortized, "speedup": speedup,
-           "backend": sess.last_report.backend, "serving": entry.serving_backend}
-    return out, sess
+           "backend": sess.last_report.backend, "residency": entry.residency,
+           "serving": entry.serving_backend}
+    if admission:
+        admission.pop("queue_depth_timeline", None)
+        out["admission"] = admission
+    return out, sess, results
 
 
 if __name__ == "__main__":

@@ -45,7 +45,7 @@ from repro_torch.core import sketch
 from repro_torch.core.difuser import DiFuserConfig, InfluenceResult
 from repro_torch.core.sampling import make_x_vector
 from repro_torch.core.sketch import VISITED, blank_matrix, pad_x, padded_regs
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
 from repro_torch.kernels import ops
@@ -63,11 +63,6 @@ def _bucket_rows(part: Partition2D, arrays, counts: np.ndarray):
               for s, n in enumerate(counts[v, :, kk].tolist())]
              for v in range(part.mu_v)]
             for kk in range(part.mu_v)]
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class _RingState:
@@ -249,7 +244,7 @@ def _prepare(g: Graph, x: np.ndarray, cfg: DiFuserConfig, *, mu_v: int, mu_s: in
     ``stats``."""
     t0 = time.perf_counter()
     sampled = sample_edge_sets(g, x, mu_s, seed=cfg.seed, model=cfg.model, device=device)
-    _sync(device)
+    synchronize(device)
     t1 = time.perf_counter()
     if plan is None:
         plan = plan_partition(g, mu_v, mu_s=mu_s, strategy=strategy, seed=cfg.seed,
@@ -257,7 +252,7 @@ def _prepare(g: Graph, x: np.ndarray, cfg: DiFuserConfig, *, mu_v: int, mu_s: in
     t2 = time.perf_counter()
     part = build_partition_2d(g, x, mu_v, mu_s, seed=cfg.seed, model=cfg.model,
                               plan=plan, pad_mode=pad_mode, sampled=sampled)
-    _sync(device)
+    synchronize(device)
     stats.update(sample_s=t1 - t0, plan_s=t2 - t1, buckets_s=time.perf_counter() - t2)
     return part
 
@@ -287,11 +282,11 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     t0 = time.perf_counter()
     st = _RingState(part, g, cfg, local_sweeps=local_sweeps, fuse_sweeps=fuse_sweeps,
                     lane_fill=lane_fill)
-    _sync(dev)
+    synchronize(dev)
     t1 = time.perf_counter()
     total_regs = part.mu_s * part.j_loc
     build_iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
-    _sync(dev)
+    synchronize(dev)
     t2 = time.perf_counter()
 
     f32 = np.float32
@@ -314,7 +309,7 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
                                                    cfg.max_propagate_iters)
             oldscore = new_score
         seeds[i], gains[i], scores[i], rebuilds[i] = s_v, gain, new_score, do_rebuild
-    _sync(dev)
+    synchronize(dev)
     stats.update(state_s=t1 - t0, build_s=t2 - t1, rounds_s=time.perf_counter() - t2)
     res = InfluenceResult(seeds=seeds, est_gains=gains, scores=scores, rebuilds=rebuilds,
                           propagate_iters=build_iters, x=np.sort(x), stats=stats)

@@ -1,10 +1,12 @@
 """RunSpec: what to run and how. Its sketch fields mirror
 ``core.difuser.DiFuserConfig``; the execution fields (``backend`` to
-``num_shards``) choose and shape the backend and change no result."""
+``lane_fill``) choose and shape the backend, and the serving fields
+(``slo`` to ``max_resident_mb``) configure the query engines. Neither
+changes a result."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.difuser import DiFuserConfig
 from repro_torch.diffusion.constants import DEFAULT_MODEL
@@ -33,6 +35,16 @@ class RunSpec:
     local_sweeps: int = 0        # comm-free sweeps before each ring sweep
     fuse_sweeps: bool = False    # run them as one fused_sweep call per shard
     lane_fill: int = 0           # register slab of the fused sweep (no effect here)
+    # serving objectives: per-query-class p99 budgets, ((class, ms), ...),
+    # read by the engines' SLO watchdog (empty: none)
+    slo: Tuple[Tuple[str, float], ...] = ()
+    # async serving (service.async_engine): serve_im --async routes through
+    # it; deadline_ms is the end-to-end deadline of a query (0: the engine's
+    # 50 ms); max_resident_mb caps the store's resident bytes and the
+    # async engine's cross-entry stack (0: no cap)
+    serve_async: bool = False
+    deadline_ms: float = 0.0
+    max_resident_mb: float = 0.0
 
     @property
     def num_shards(self) -> int:

@@ -19,11 +19,13 @@ lt any delta rebuilds.
 The reference also repairs only the plan shards a delta dirtied, on its
 ``serial`` backend. The port does not have that repair yet (ROADMAP §1.3):
 a request for it raises ``NotImplementedError``.
+
+Each call runs in a ``delta.apply`` span (the ``repair`` lane) and lands in
+the ``delta.*`` metrics (sweeps, seconds, rebuilds).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -36,6 +38,7 @@ from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph, GraphDelta, edge_pair_keys
 from repro_torch.kernels import ops
 from repro_torch.kernels.edges import EdgeOperands
+from repro_torch.obs import metrics, trace
 from repro_torch.service.store import SketchStore, StoreEntry, StoreKey
 
 
@@ -96,7 +99,25 @@ def apply_delta(store: SketchStore, key: StoreKey, delta: GraphDelta, *,
     (``"auto"`` or ``"serial"``, with a plan attached and shards touched),
     this raises ``NotImplementedError`` before anything changes.
     """
-    t0 = time.perf_counter()
+    with trace.span("delta.apply", phase="repair", timed=True, added=delta.num_added,
+                    removals=delta.num_removed) as sp:
+        rep = _apply(store, key, delta, staleness_threshold, backend)
+        sp.annotate(rebuilt=rep.rebuilt, sweeps=rep.repair_sweeps, backend="single")
+    rep.time_s = sp.duration_s
+    metrics.histogram("delta.repair_sweeps").observe(rep.repair_sweeps)
+    metrics.histogram("delta.apply_s", unit="s").observe(rep.time_s)
+    if rep.rebuilt:
+        metrics.counter("delta.rebuilds").inc()
+    entry = store.entry(key)
+    if entry.plan is not None and entry.plan.mu_v:
+        metrics.gauge("delta.dirty_shard_frac").set(
+            len(rep.plan_shards_touched) / entry.plan.mu_v)
+    return rep
+
+
+def _apply(store: SketchStore, key: StoreKey, delta: GraphDelta,
+           staleness_threshold: float, backend) -> DeltaReport:
+    """``apply_delta``'s work, in its span; the caller sets ``time_s``."""
     entry = store.entry(key)
     g = entry.graph
     m_before = g.m_real
@@ -141,7 +162,7 @@ def apply_delta(store: SketchStore, key: StoreKey, delta: GraphDelta, *,
     return DeltaReport(added=delta.num_added, removed=removed, rebuilt=rebuilt,
                        stale=entry.stale, staleness_frac=entry.staleness_frac,
                        repair_sweeps=repair_sweeps, banks_touched=banks_touched,
-                       time_s=time.perf_counter() - t0, plan_shards_touched=plan_shards)
+                       time_s=0.0, plan_shards_touched=plan_shards)
 
 
 def _repair_insertions(entry: StoreEntry, new_g: Graph, delta: GraphDelta):

@@ -10,18 +10,25 @@ scattered back to per-request results with the batch's latency.
 ``TopKSeeds`` requests are deduplicated: identical (store key, k) requests
 of a chunk share one run, and results are memoized against the entry's
 ``(version, stale)`` token, which every delta and rebuild moves, so repeated
-top-k traffic against an unchanged index is a dictionary hit.
+top-k traffic against an unchanged index is a dictionary hit; a swap of the
+entry (``SketchStore.swap_entry``) drops the key's memos at once.
+
+Every batch runs in a timed span (``engine.*_batch``, the ``query`` lane)
+and lands in the ``engine.*`` metrics; with latency budgets configured
+(``slo``, or ``RunSpec.slo``) an SLO watchdog reads each batch's latency
+and dumps the flight ring on a breach, as an exception during ``run`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
 
 from repro_torch.core.difuser import DiFuserConfig
 from repro_torch.graphs.structs import Graph
+from repro_torch.obs import flight, metrics, trace
+from repro_torch.obs.slo import SLOConfig, SLOWatchdog
 from repro_torch.service import queries as Q
 from repro_torch.service.store import SketchStore, StoreEntry, StoreKey
 
@@ -69,15 +76,49 @@ class QueryResult:
 
 class InfluenceEngine:
     """Runs a stream of mixed queries in padded batches against ``store``'s
-    entries."""
+    entries.
 
-    def __init__(self, store: SketchStore, max_batch: int = 256):
+    Without ``store`` the engine makes its own from ``spec`` and ``device``
+    (CUDA unless ``device="cpu"``); with one, those belong to the store and
+    passing them raises. ``slo``: per-class p99 budgets in ms (an
+    ``SLOConfig``, a mapping or ``(class, ms)`` pairs), else ``spec.slo``."""
+
+    def __init__(self, store: Optional[SketchStore] = None, max_batch: int = 256, *,
+                 spec=None, slo=None, device=None):
+        # an empty store is falsy (len 0): compare with None
+        if store is None:
+            store = SketchStore(spec=spec, device=device)
+        elif spec is not None or device is not None:
+            raise ValueError("pass spec and device to the SketchStore itself "
+                             "when sharing an explicit store")
         self.store = store
         self.max_batch = max_batch
         self._pending: list = []
         # (store key, k) -> ((version, stale), InfluenceResult): a delta
         # overwrites the value instead of stranding old versions
         self._topk_memo: dict = {}
+        if slo is None and spec is not None:
+            slo = spec.slo
+        cfg = SLOConfig.coerce(slo)
+        self.slo = (SLOWatchdog(cfg, on_breach=self._on_slo_breach) if cfg is not None
+                    else None)
+        self.store.add_swap_hook(self._on_store_swap)
+
+    def _on_store_swap(self, key, old, new) -> None:
+        """A swap retires the key's memoized top-k results at once (the
+        version token would reject them anyway). Runs on the mutating
+        thread: ``list`` copies the keys in one step under the GIL."""
+        for mk in list(self._topk_memo):
+            if mk[0] == key:
+                self._topk_memo.pop(mk, None)
+
+    @staticmethod
+    def _on_slo_breach(qclass, p99_ms, budget_ms, watchdog) -> None:
+        flight.dump(f"slo-breach-{qclass}-p99-{p99_ms:.1f}ms-budget-{budget_ms:.1f}ms")
+
+    def slo_summary(self) -> dict:
+        """Per-class SLO state; empty without budgets."""
+        return self.slo.summary() if self.slo is not None else {}
 
     # -- admission ----------------------------------------------------------
 
@@ -112,10 +153,18 @@ class InfluenceEngine:
         groups: dict = {}
         for i, req in enumerate(requests):
             groups.setdefault((req.key, type(req.query).__name__), []).append(i)
-        for (key, _), idxs in groups.items():
-            entry = self.store.entry(key)
-            for lo in range(0, len(idxs), self.max_batch):
-                self.execute_chunk(entry, requests, idxs[lo: lo + self.max_batch], results)
+        try:
+            for (key, _), idxs in groups.items():
+                entry = self.store.entry(key)
+                for lo in range(0, len(idxs), self.max_batch):
+                    self.execute_chunk(entry, requests, idxs[lo: lo + self.max_batch],
+                                       results)
+        except Exception as e:
+            # the flight ring holds the spans that led up to the fault; the
+            # dump never raises, and the fault propagates
+            metrics.counter("engine.exceptions", error=type(e).__name__).inc()
+            flight.dump(f"engine-exception-{type(e).__name__}")
+            raise
         return results
 
     def __call__(self, key: StoreKey, query: Q.Query) -> QueryResult:
@@ -125,7 +174,10 @@ class InfluenceEngine:
     def execute_chunk(self, entry: StoreEntry, requests: Sequence[Request],
                       chunk: Sequence[int], results: list) -> None:
         """Run one chunk of requests of one class against ``entry``, writing
-        their ``QueryResult``s into ``results`` at the chunk's indices."""
+        their ``QueryResult``s into ``results`` at the chunk's indices. The
+        async engine's unit of work: it takes the entry, not the key, so a
+        batch finishes against the version it started with even if a swap
+        lands meanwhile."""
         qname = type(requests[chunk[0]].query).__name__
         run = {"TopKSeeds": self._run_topk, "SpreadEstimate": self._run_spread,
                "MarginalGain": self._run_marginal,
@@ -136,13 +188,23 @@ class InfluenceEngine:
 
     # -- per-class executors --------------------------------------------------
 
+    def _account(self, qclass: str, dt: float, batch: int) -> None:
+        """Per-class serving metrics (requests, batch latency, amortized
+        cost) and the SLO watchdog's window."""
+        metrics.counter("engine.requests", query=qclass).inc(batch)
+        metrics.histogram("engine.batch_latency_s", unit="s", query=qclass).observe(dt)
+        metrics.histogram("engine.amortized_s", unit="s",
+                          query=qclass).observe(dt / max(batch, 1))
+        if self.slo is not None:
+            self.slo.observe(qclass, dt)
+
     @staticmethod
     def _pad_sets(sets: list) -> list:
         """Pad the batch to a power of two with empty (sentinel-only) sets."""
         return sets + [()] * (_pow2(len(sets)) - len(sets))
 
-    @staticmethod
-    def _scatter(entry, requests, chunk, results, values, dt) -> None:
+    def _scatter(self, qclass, entry, requests, chunk, results, values, dt) -> None:
+        self._account(qclass, dt, len(chunk))
         for j, i in enumerate(chunk):
             results[i] = QueryResult(requests[i].query, values[j], dt, dt / len(chunk),
                                      len(chunk), backend=entry.serving_backend)
@@ -150,10 +212,12 @@ class InfluenceEngine:
     def _run_spread(self, entry, requests, chunk, results):
         sets = self._pad_sets([requests[i].query.candidates for i in chunk])
         length = _pow2(max((len(s) for s in sets), default=1))
-        t0 = time.perf_counter()
-        est = Q.spread_estimates(entry, sets, length)
-        dt = time.perf_counter() - t0
-        self._scatter(entry, requests, chunk, results, [float(v) for v in est], dt)
+        # the lowerings return numpy, so the span's clock covers the device
+        with trace.span("engine.spread_batch", phase="query", timed=True,
+                        batch=len(chunk)) as sp:
+            est = Q.spread_estimates(entry, sets, length)
+        self._scatter("SpreadEstimate", entry, requests, chunk, results,
+                      [float(v) for v in est], sp.duration_s)
 
     def _run_marginal(self, entry, requests, chunk, results):
         sentinel = entry.graph.n_pad - 1
@@ -161,10 +225,11 @@ class InfluenceEngine:
         comm = self._pad_sets([requests[i].query.committed for i in chunk])
         length = _pow2(max((len(s) for s in comm), default=1))
         cands = cands + [sentinel] * (len(comm) - len(chunk))
-        t0 = time.perf_counter()
-        gains = Q.marginal_gains(entry, cands, comm, length)
-        dt = time.perf_counter() - t0
-        self._scatter(entry, requests, chunk, results, [float(v) for v in gains], dt)
+        with trace.span("engine.marginal_batch", phase="query", timed=True,
+                        batch=len(chunk)) as sp:
+            gains = Q.marginal_gains(entry, cands, comm, length)
+        self._scatter("MarginalGain", entry, requests, chunk, results,
+                      [float(v) for v in gains], sp.duration_s)
 
     def _run_probe(self, entry, requests, chunk, results):
         sentinel = entry.graph.n_pad - 1
@@ -175,12 +240,13 @@ class InfluenceEngine:
             spans.append((len(flat), len(vs)))
             flat.extend(vs)
         flat = flat + [sentinel] * (_pow2(max(len(flat), 1)) - len(flat))
-        t0 = time.perf_counter()
-        est, max_reg = Q.coverage_probes(entry, flat)
-        dt = time.perf_counter() - t0
+        with trace.span("engine.probe_batch", phase="query", timed=True,
+                        batch=len(chunk)) as sp:
+            est, max_reg = Q.coverage_probes(entry, flat)
         values = [{"est": est[off: off + ln].copy(),
                    "max_register": max_reg[off: off + ln].copy()} for off, ln in spans]
-        self._scatter(entry, requests, chunk, results, values, dt)
+        self._scatter("CoverageProbe", entry, requests, chunk, results, values,
+                      sp.duration_s)
 
     def _run_topk(self, entry, requests, chunk, results):
         by_k: dict = {}
@@ -190,14 +256,20 @@ class InfluenceEngine:
             memo_key = (entry.key, k)
             cached = self._topk_memo.get(memo_key)
             if cached is not None and cached[0] == (entry.version, entry.stale):
+                metrics.counter("engine.topk_memo_hits").inc(len(idxs))
                 for i in idxs:
                     results[i] = QueryResult(requests[i].query, cached[1], 0.0, 0.0,
                                              len(idxs), backend="memo", cache_hit=True)
                 continue
-            t0 = time.perf_counter()
-            res = Q.top_k_seeds(self.store, entry, k)
-            dt = time.perf_counter() - t0
-            # a stale entry was rebuilt in place: memoize under its new token
+            metrics.counter("engine.topk_memo_misses").inc()
+            with trace.span("engine.topk_batch", phase="query", timed=True, k=k,
+                            batch=len(idxs)) as sp:
+                res = Q.top_k_seeds(self.store, entry, k)
+            dt = sp.duration_s
+            self._account("TopKSeeds", dt, len(idxs))
+            # a stale entry was rebuilt in place: memoize under the executed
+            # entry's new token, not a fresh lookup's (a swap to N+1 meanwhile
+            # must not file version N's result under N+1)
             self._topk_memo[memo_key] = ((entry.version, entry.stale), res)
             for j, i in enumerate(idxs):
                 results[i] = QueryResult(requests[i].query, res, dt, dt / len(idxs),

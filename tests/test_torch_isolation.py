@@ -55,14 +55,15 @@ def _graph():
                                    "sample_edge_sets", "launcher_serial",
                                    "store_get_or_build", "engine", "session_find_seeds",
                                    "session_apply_delta", "launcher_validate",
-                                   "serve_launcher"])
+                                   "serve_launcher", "async_engine", "engine_own_store",
+                                   "serve_launcher_async"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     from repro_torch import partition
     from repro_torch.core import difuser
     from repro_torch.graphs import GraphDelta
     from repro_torch.launch import im, serve_im
     from repro_torch.runtime import InfluenceSession, RunSpec, run
-    from repro_torch.service import InfluenceEngine, SketchStore
+    from repro_torch.service import AsyncInfluenceEngine, InfluenceEngine, SketchStore
 
     g = _graph()
     cfg = difuser.DiFuserConfig(num_registers=32)
@@ -92,6 +93,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
                                              "32", "--validate", "--ris"]),
         "serve_launcher": lambda: serve_im.run(["--graph", "rmat:6", "--registers", "32",
                                                 "--queries", "4"]),
+        "async_engine": lambda: AsyncInfluenceEngine(),
+        "engine_own_store": lambda: InfluenceEngine(),
+        "serve_launcher_async": lambda: serve_im.run(["--graph", "rmat:6", "--registers",
+                                                      "32", "--queries", "4", "--async"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

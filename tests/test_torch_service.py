@@ -335,10 +335,12 @@ def test_serve_launcher_matches_reference(tmp_path):
 
     argv = ["--graph", "rmat:9", "--registers", "64", "--queries", "64"]
     want = R_serve.run(argv)
-    got, sess = T_serve.run(argv + ["--device", "cpu", "--attach-plan", "--plan-shards", "4",
-                                    "--save", str(tmp_path / "idx")], return_session=True)
-    assert set(got) == set(want) - {"residency"}
-    for key in ("num_queries", "cache_hits", "deduped", "by_backend", "backend", "serving"):
+    got, sess, _ = T_serve.run(argv + ["--device", "cpu", "--attach-plan", "--plan-shards",
+                                       "4", "--save", str(tmp_path / "idx")],
+                               return_session=True)
+    assert set(got) == set(want)
+    for key in ("num_queries", "cache_hits", "deduped", "by_backend", "backend", "residency",
+                "serving"):
         assert got[key] == want[key], key
     entry = sess.entry()
     assert entry.plan is not None and entry.plan.mu_v == 4

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # all phases, as the check runs it
     python3 chip_smoke.py --phases 1,2    # build and kernel checks only
     python3 chip_smoke.py --phases 1,6,7  # the serving phases (7 needs 6)
+    python3 chip_smoke.py --phases 1,6,8  # the shard repair and spans (8 needs 6)
 
 Phases (each raises on failure; none is caught):
 
@@ -69,7 +70,24 @@ Phases (each raises on failure; none is caught):
    The launch counters count the launcher and the async engines alone (the
    sync engine's reference answers run outside them): the engines' own
    calls launched every single-path kernel, no plain version ran, and no
-   future holds an exception.
+   future holds an exception;
+8. shard repair and spans, on phase 6's index of phase 4's graph (J=512):
+   (a) an 8-shard ``block`` plan (``mu_s`` 1) attached, phase 6's
+   1,024-edge random delta through ``apply_delta(…, backend="serial")``,
+   byte-equal to the per-bank repair of the same delta on a clone and to
+   phase 6's repaired matrix, all 8 shards swept; the ``single`` and the
+   ``serial`` backends' ``fixpoint`` hooks from the unrepaired matrix equal
+   to it; (b) 1,024 insertions with both endpoints in plan shard 0
+   (``plan_shards_touched == (0,)``), byte-equal to the per-bank repair,
+   the shards swept per sweep printed; a warm top-k after both equal to a
+   cold ``find_seeds``, and the ``cascade`` hook; (c) the build, both
+   repairs and the cascade hook replayed on the plain path, equal; (d)
+   ``repro_torch.launch.im --trace --metrics`` at phase 4's size and the
+   phase 4b grid traced (``observe``), seeds equal to phases 4 and 4b: span
+   coverage, lanes, the top spans, the measured shard profile and its
+   ``partition.predicted_vs_measured_edge_imb`` gauge. Each repair runs with
+   the span recorder on, its merges timed by CUDA events; its launches, with
+   the hooks' and the warm top-k's, are ``launches_repair``.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
@@ -84,7 +102,7 @@ the new index equal to a cold build); and ``repro_torch.launch.im
 
 It prints the ``kernels`` JSON line (``launches`` counts phase 4's or 4b's
 run, ``launches_serve`` phase 6's, ``launches_async`` phase 7's
-launcher and async engines), the
+launcher and async engines, ``launches_repair`` phase 8's repairs), the
 ``nvidia-smi`` line, and last the contract line ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository around it, it
 exits non-zero before printing any. Longer output goes to
@@ -130,9 +148,16 @@ SERVE = dict(registers=512, banks=1, queries=1000, topk=10, max_batch=256, delta
 # phase 7's tenancy: two more graphs at phase 6's J beside its index, each
 # about a quarter of it, under a resident budget that holds two of the three
 TENANT_GRAPH = "rmat:18"
+# phase 8's plan and localized delta: the serve launcher's --plan-shards 8
+# block plan over one sim shard on phase 6's index, and 1,024 insertions
+REPAIR = dict(plan_shards=8, strategy="block", delta_edges=1024)
 SINGLE_KERNELS = ("sketch_fill", "sketch_cardinality", "sketch_propagate", "cascade_step")
 SERIAL_KERNELS = ("fused_sample", "sketch_fill", "sketch_cardinality", "fused_sweep",
                   "bucket_propagate", "bucket_cascade")
+# phase 8: the restricted and full ring repairs (their partitions sample with
+# fused_sample), the single hooks, and the warm top-k after the repairs
+REPAIR_KERNELS = ("bucket_propagate", "fused_sample", "sketch_propagate", "cascade_step",
+                  "sketch_cardinality")
 
 
 def log(*a):
@@ -870,6 +895,7 @@ def phase_full_serial(k: int, single_seeds) -> dict:
     import torch
 
     from repro_torch.kernels import counters
+    from repro_torch.obs import shardprof
     from repro_torch.runtime import RunSpec, run
 
     g = full_graph()
@@ -896,6 +922,13 @@ def phase_full_serial(k: int, single_seeds) -> dict:
         f"{[int(a.shape[-1]) for a in part.p_h]}, cascade "
         f"{[int(a.shape[-1]) for a in part.c_h]}; sampled edges per sim shard "
         f"{part.p_counts.sum(axis=(0, 2)).tolist()}")
+    prof = shardprof.last_profile()
+    check(prof is not None and prof.per_step_timed and prof.phase == "fixpoint",
+          "4b: no timed shard profile of the build")
+    log(f"[4b] measured shard profile of the build (CUDA events per merge): time imbalance "
+        f"{prof.time_imbalance():.3f}, bytes imbalance {prof.bytes_imbalance():.3f}, "
+        f"shard seconds {[round(float(v), 4) for v in prof.shard_seconds()]}, "
+        f"{prof.achieved_gbps():.1f} GB/s of bucket bytes over {prof.wall_s:.3f}s")
     log(f"[4b] launches {launches}; plain calls {plain}")
     check(not plain, f"plain versions ran on the serial path: {plain}")
     missing = [n for n in SERIAL_KERNELS if launches.get(n, 0) <= 0]
@@ -1313,7 +1346,8 @@ def phase_serve() -> dict:
         f"{warm.seeds.tolist()} equal a cold find_seeds on the post-delta graph "
         f"({cold_s:.3f}s); max_memory_allocated {peak / 2**30:.2f} GiB")
     # phase 7 repeats this build and this delta through the async engine
-    _SERVE.update(built=built, repaired=repaired, delta=delta,
+    _SERVE.update(built=built, repaired=repaired, delta=delta, graph=graph_before,
+                  spec=sess.spec,
                   insert=(rep.repair_sweeps, rep.banks_touched, rep.rebuilt))
     plain_s = _serve_plain_replay(sess.spec, graph_before, delta, built, rep, repaired, warm)
     host = _serve_host_split(entry, delta)
@@ -1622,9 +1656,293 @@ def phase_async() -> dict:
                 peak_bytes=peak, phase_s=time.perf_counter() - t_phase)
 
 
+# --------------------------------------------------------------- phase 8 ----
+
+@contextlib.contextmanager
+def _timed_merges(into: list):
+    """``ops.bucket_propagate`` with a pair of CUDA events around each launch,
+    for the length of a block; ``into`` gets the pairs (read them after a
+    sync). The serial ring calls the merge as a module attribute."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    orig = ops.bucket_propagate
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        into.append((start, end))
+        return out
+
+    ops.bucket_propagate = timed
+    try:
+        yield
+    finally:
+        ops.bucket_propagate = orig
+
+
+def _events_s(pairs) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) * 1e-3
+
+
+def _span_split(events, top=8) -> str:
+    """Seconds and count per span name, the largest first."""
+    from collections import defaultdict
+
+    tot, cnt = defaultdict(float), defaultdict(int)
+    for ev in events:
+        tot[ev["name"]] += ev["dur_s"]
+        cnt[ev["name"]] += 1
+    names = sorted(tot, key=tot.get, reverse=True)[:top]
+    return ", ".join(f"{n} {tot[n]:.3f}s x{cnt[n]}" for n in names)
+
+
+def _traced_repair(store, key, delta, launches, what):
+    """``apply_delta(…, backend="serial")`` with the span recorder on, its
+    launches added to ``launches`` and its merges timed by CUDA events.
+    Returns (report, the repaired matrix, wall s, merge device s, spans)."""
+    from repro_torch.obs import trace
+    from repro_torch.service import apply_delta
+
+    rec = trace.get_recorder()
+    pairs: list = []
+    rec.start()
+    try:
+        with _counted(launches, what), _timed_merges(pairs):
+            t0 = time.perf_counter()
+            rep = apply_delta(store, key, delta, backend="serial")
+            wall = time.perf_counter() - t0
+    finally:
+        rec.stop()
+    return rep, store.entry(key).matrix, wall, _events_s(pairs), rec.events()
+
+
+def phase_shard_repair(full, serial, k: int) -> dict:
+    """Shard-restricted delta repair and the drivers' spans on phase 4's
+    graph: phase 6's J = 512 index with an 8-shard ``block`` plan attached
+    takes (a) phase 6's random delta and (b) a delta inside plan shard 0,
+    each through ``apply_delta(…, backend="serial")`` and held against the
+    per-bank repair of the same delta on a clone; the backends' hooks and a
+    warm top-k after (b); (c) the same on the plain path; (d) ``im --trace
+    --metrics`` on the single path and the phase 4b grid traced."""
+    import argparse
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.difuser import find_seeds
+    from repro_torch.core.sketch import VISITED
+    from repro_torch.graphs import GraphDelta
+    from repro_torch.kernels import counters
+    from repro_torch.launch import im
+    from repro_torch.launch.common import observe
+    from repro_torch.obs import metrics, shardprof, trace
+    from repro_torch.partition import plan_partition
+    from repro_torch.runtime import InfluenceSession, RunSpec, get_backend, run
+    from repro_torch.service import apply_delta
+    from repro_torch.service.queries import top_k_seeds
+
+    check(bool(_SERVE), "phase 8 repeats phase 6's index and delta: run phase 6 first")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    launches = Counter()
+    graph, spec, delta = _SERVE["graph"], _SERVE["spec"], _SERVE["delta"]
+    single, ring = get_backend("single"), get_backend("serial")
+
+    sess = InfluenceSession(graph, spec, device="cuda")
+    entry = sess.entry()
+    key, x = entry.key, entry.x
+    built = entry.matrix            # version 0's banks: every mutation is out of place
+    check(np.array_equal(built.cpu().numpy(), _SERVE["built"]),
+          "phase 8's index differs from phase 6's build")
+    t0 = time.perf_counter()
+    plan = plan_partition(entry.graph, REPAIR["plan_shards"], mu_s=1,
+                          strategy=REPAIR["strategy"], x=x, seed=spec.seed, device="cuda")
+    plan_s = time.perf_counter() - t0
+    sess.store.attach_plan(key, plan)
+    clone = sess.store.shadow(key)  # the per-bank repair's copy, sharing version 0's banks
+
+    # (a) phase 6's random delta
+    t0 = time.perf_counter()
+    rep_pb = apply_delta(clone, key, delta)
+    pb_s = time.perf_counter() - t0
+    rep_a, m_a, wall_a, dev_a, spans_a = _traced_repair(sess.store, key, delta, launches,
+                                                        "8a repair")
+    check(torch.equal(m_a, clone.entry(key).matrix),
+          "8a: the shard repair differs from the per-bank repair")
+    check(np.array_equal(m_a.cpu().numpy(), _SERVE["repaired"]),
+          "8a: the shard repair differs from phase 6's repaired matrix")
+    check(torch.equal(built, torch.from_numpy(_SERVE["built"]).cuda()),
+          "8a: the repair wrote version 0's matrix")
+    all_shards = tuple(range(REPAIR["plan_shards"]))
+    check(rep_a.repair_backend == "serial" and not rep_a.rebuilt
+          and rep_a.plan_shards_touched == all_shards and rep_a.shards_swept == all_shards,
+          f"8a report {rep_a}")
+    log(f"[8a] {REPAIR['plan_shards']}-shard {REPAIR['strategy']} plan (mu_s 1) in "
+        f"{plan_s:.3f}s; {REPAIR['delta_edges']}-edge random delta through the serial "
+        f"shard repair: repair sweeps {rep_a.repair_sweeps}, plan shards touched "
+        f"{rep_a.plan_shards_touched}, shards swept {rep_a.shards_swept}, banks touched "
+        f"{rep_a.banks_touched}; bucket_propagate launches "
+        f"{launches.get('bucket_propagate', 0)}; host {wall_a:.3f}s, merges on the device "
+        f"{dev_a:.3f}s; byte-equal to the per-bank repair on a clone ({pb_s:.3f}s, "
+        f"{rep_pb.repair_sweeps} sweeps) and to phase 6's")
+    log(f"[8a] spans: {_span_split(spans_a)}")
+
+    # the backends' hooks from version 0's matrix on the post-(a) graph
+    g_a = sess.store.entry(key).graph
+    with _counted(launches, "8a hooks"):
+        t0 = time.perf_counter()
+        m_fix, it_fix = single.fixpoint(built, g_a, spec, x)
+        t1 = time.perf_counter()
+        m_ring, it_ring = ring.fixpoint(built, g_a, spec.with_(mu_v=REPAIR["plan_shards"],
+                                                               mu_s=1), x)
+        t2 = time.perf_counter()
+    check(torch.equal(m_fix, m_a) and torch.equal(m_ring, m_a),
+          "8a: a backend's fixpoint hook differs from the shard repair")
+    log(f"[8a] hooks: single fixpoint {it_fix} sweeps {t1 - t0:.3f}s, serial fixpoint (all "
+        f"shards dirty) {it_ring} sweeps {t2 - t1:.3f}s; both equal the shard repair")
+    del m_fix, m_ring
+
+    # (b) a delta inside plan shard 0
+    in_0 = np.flatnonzero(plan.owner_of(np.arange(graph.n)) == 0)
+    rng = np.random.default_rng(2)
+    local = GraphDelta.make(add=(rng.choice(in_0, REPAIR["delta_edges"]),
+                                 rng.choice(in_0, REPAIR["delta_edges"])))
+    before = launches.get("bucket_propagate", 0)
+    t0 = time.perf_counter()
+    rep_pb_b = apply_delta(clone, key, local)
+    pb_b_s = time.perf_counter() - t0
+    rep_b, m_b, wall_b, dev_b, spans_b = _traced_repair(sess.store, key, local, launches,
+                                                        "8b repair")
+    check(torch.equal(m_b, clone.entry(key).matrix),
+          "8b: the shard repair differs from the per-bank repair")
+    check(rep_b.plan_shards_touched == (0,) and rep_b.repair_backend == "serial"
+          and 0 in rep_b.shards_swept, f"8b report {rep_b}")
+    per_sweep = [ev["attrs"]["shards"] for ev in spans_b if ev["name"] == "serial.repair_sweep"]
+    log(f"[8b] {REPAIR['delta_edges']}-edge delta inside plan shard 0 ({in_0.size} vertices): "
+        f"plan shards touched {rep_b.plan_shards_touched}, shards swept {rep_b.shards_swept}, "
+        f"per sweep {per_sweep}; repair sweeps {rep_b.repair_sweeps}, banks touched "
+        f"{rep_b.banks_touched}; bucket_propagate launches "
+        f"{launches.get('bucket_propagate', 0) - before}; host {wall_b:.3f}s, merges on the "
+        f"device {dev_b:.3f}s; byte-equal to the per-bank repair on a clone ({pb_b_s:.3f}s, "
+        f"{rep_pb_b.repair_sweeps} sweeps)")
+    log(f"[8b] spans: {_span_split(spans_b)}")
+    del clone
+
+    # a warm top-k and the cascade hook on the repaired index
+    g_b = sess.store.entry(key).graph
+    with _counted(launches, "8b warm top-k and cascade hook"):
+        warm = top_k_seeds(sess.store, sess.store.entry(key), SERVE["topk"])
+        s0 = int(warm.seeds[0])
+        m_c, it_c = single.cascade(m_b, s0, g_b, spec, x)
+    cold = find_seeds(g_b, SERVE["topk"], entry.cfg, x=x, device="cuda")
+    np.testing.assert_array_equal(warm.seeds, cold.seeds)
+    check(bool((m_c[s0] == VISITED).all()), "8b: the cascade hook left the seed's row")
+    log(f"[8b] warm top-{SERVE['topk']} after both repairs {warm.seeds.tolist()} equals a "
+        f"cold find_seeds; cascade hook from seed {s0}: {it_c} sweeps")
+    missing = [n for n in REPAIR_KERNELS if launches.get(n, 0) <= 0]
+    check(not missing, f"kernels not launched on the repair path: {missing}")
+    peak_kernel = torch.cuda.max_memory_allocated()
+    log(f"[8b] max_memory_allocated on the kernel path (a, b, hooks, top-k) "
+        f"{peak_kernel / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+    # (c) the plain path
+    counters.reset()
+    t0 = time.perf_counter()
+    with plain_ops():
+        psess = InfluenceSession(graph, spec, device="cuda")
+        pe = psess.entry()
+        check(torch.equal(pe.matrix, built), "8c: the plain build differs")
+        psess.store.attach_plan(pe.key, plan)
+        p_a = apply_delta(psess.store, pe.key, delta, backend="serial")
+        check(torch.equal(psess.store.entry(pe.key).matrix, m_a), "8c: (a) differs")
+        p_b = apply_delta(psess.store, pe.key, local, backend="serial")
+        check(torch.equal(psess.store.entry(pe.key).matrix, m_b), "8c: (b) differs")
+        p_c, p_it = single.cascade(m_b, s0, g_b, spec, x)
+    plain_s = time.perf_counter() - t0
+    check(not counters.LAUNCHES, f"8c plain path launched {dict(counters.LAUNCHES)}")
+    for got, want in ((p_a, rep_a), (p_b, rep_b)):
+        for field in ("repair_sweeps", "plan_shards_touched", "shards_swept", "banks_touched"):
+            check(getattr(got, field) == getattr(want, field), ("8c report", field))
+    check(torch.equal(p_c, m_c) and p_it == it_c, "8c: the cascade hook differs")
+    log(f"[8c] plain-path replay ({plain_s:.2f}s, plain calls {dict(counters.PLAIN_CALLS)}): "
+        f"build, both repairs, their sweeps and shards and the cascade hook equal the "
+        f"kernel path's")
+    del psess, pe, p_c, m_c, m_a, m_b, built, sess, entry
+
+    # (d) the launcher's spans at full size, single path and the phase 4b grid
+    traced = {}
+    OUT.mkdir(parents=True, exist_ok=True)
+    rec = trace.get_recorder()
+    argv = ["--graph", FULL["graph"], "--setting", FULL["setting"], "--model", FULL["model"],
+            "--registers", str(FULL["registers"]), "--k", str(k),
+            "--trace", str(OUT / "trace_single.json"),
+            "--metrics", str(OUT / "metrics_single.jsonl")]
+    t0 = time.perf_counter()
+    out = im.run(argv)
+    traced["single"] = dict(wall_s=time.perf_counter() - t0, time_s=out["time_s"],
+                            seeds=out["seeds"], events=rec.events())
+    args = argparse.Namespace(trace=str(OUT / "trace_serial.json"),
+                              metrics=str(OUT / "metrics_serial.jsonl"))
+    t0 = time.perf_counter()
+    with observe(args):
+        rep = run(full_graph(), k, RunSpec(num_registers=FULL["registers"],
+                                           model=FULL["model"], **SERIAL), device="cuda")
+    traced["serial"] = dict(wall_s=time.perf_counter() - t0, time_s=rep.wall_s,
+                            seeds=rep.result.seeds.tolist(), events=rec.events())
+    check(traced["single"]["seeds"] == traced["serial"]["seeds"],
+          "8d: traced single and serial seeds differ")
+    for name, ref in (("single", full), ("serial", serial)):
+        t = traced[name]
+        evs = t["events"]
+        top = sum(ev["dur_s"] for ev in evs if ev["depth"] == 0)
+        lanes = sorted({ev["phase"] for ev in evs})
+        untraced = ""
+        if ref is not None:
+            check(t["seeds"] == list(ref["seeds"]), f"8d: traced {name} seeds differ")
+            untraced = (f"; untraced (phase {'4' if name == 'single' else '4b'}) "
+                        f"{ref['time_s'] if name == 'single' else ref['wall_s']:.2f}s, "
+                        f"seeds equal")
+        log(f"[8d] traced {name}: {len(evs)} spans, lanes {lanes}, top-level span seconds "
+            f"{top:.3f} of {t['wall_s']:.3f}s wall ({top / t['wall_s'] * 100:.1f}%); "
+            f"driver {t['time_s']:.2f}s traced{untraced}")
+        log(f"[8d] {name} spans: {_span_split(evs, top=10)}")
+    gauge = metrics.registry().gauge("partition.predicted_vs_measured_edge_imb",
+                                     backend="serial", strategy=SERIAL["partition"]).value
+    prof = shardprof.last_profile()
+    check(prof is not None and prof.per_step_timed, "8d: no timed shard profile")
+    log(f"[8d] partition.predicted_vs_measured_edge_imb {gauge:.6f}; measured profile "
+        f"(CUDA events per merge):\n{prof.skew_table()}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[8] launches {dict(launches)}; max_memory_allocated of (c) and (d) "
+        f"{peak / 2**30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f}s")
+    return dict(launches=dict(launches), plan_s=plan_s,
+                a=dict(sweeps=rep_a.repair_sweeps, swept=list(rep_a.shards_swept),
+                       host_s=wall_a, device_s=dev_a, per_bank_s=pb_s,
+                       per_bank_sweeps=rep_pb.repair_sweeps),
+                b=dict(sweeps=rep_b.repair_sweeps, swept=list(rep_b.shards_swept),
+                       per_sweep=per_sweep, host_s=wall_b, device_s=dev_b,
+                       per_bank_s=pb_b_s, per_bank_sweeps=rep_pb_b.repair_sweeps),
+                plain_s=plain_s, hooks=dict(single_s=t1 - t0, serial_s=t2 - t1),
+                traced={n: {k2: v for k2, v in t.items() if k2 != "events"}
+                        for n, t in traced.items()},
+                edge_imb_ratio=gauge, profile=prof.summary(), peak_bytes=peak,
+                peak_kernel_bytes=peak_kernel,
+                phase_s=time.perf_counter() - t_phase)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1666,13 +1984,17 @@ def main(argv=None) -> int:
     if served_async:
         for row in rows:   # and on the async path
             row["launches_async"] = int(served_async["launches"].get(row["name"], 0))
+    repair = phase_shard_repair(full, serial, args.k) if "8" in phases else None
+    if repair:
+        for row in rows:   # and on the shard repair's path
+            row["launches_repair"] = int(repair["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
         serial_out = {k: v for k, v in (serial or {}).items() if k != "partition"}
         (OUT / "kernels.json").write_text(json.dumps(
             dict(rows=rows, full=full, serial=serial_out, serve=serve,
-                 served_async=served_async, smi=smi), indent=1))
+                 served_async=served_async, repair=repair, smi=smi), indent=1, default=str))
         print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,14 @@ return is J wide.
 
 Entry points (``build_sketch_matrix``, ``find_seeds``, ``find_seeds_warm``)
 run on CUDA unless ``device="cpu"`` is passed; see ``repro_torch.device``.
+
+Spans (``obs.trace``; null and free while the recorder is off): the
+reference's ``single.find_seeds`` (build and rounds), ``single.build_matrix``
+(with its bandwidth, ``utils.roofline``) and ``single.warm_rounds``, and the
+port's own split of a driver run, which the reference's one-program jit has
+no room for: ``single.prep`` (sort, model lowering, upload), and per round
+``single.round`` with ``single.cascade_fixpoint`` and ``single.rebuild``
+inside, named as the serial ring's are. Each syncs the matrix it produced.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ from repro_torch.diffusion.constants import DEFAULT_MODEL
 from repro_torch.graphs.structs import Graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.edges import EdgeOperands
+from repro_torch.obs import trace
+from repro_torch.utils import roofline
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,28 +134,40 @@ def _seed_rounds(m, edges, x_t, *, k, n_real, num_regs, cfg, variant, stats):
     oldscore = f32(0.0)
     seeds, gains, scores, rebuilds = [], [], [], []
     stats.update(cascade_sweeps=0, rebuild_sweeps=0)
-    for _ in range(k):
-        sums = _select.local_sums(m)
-        s, gain = _select.finish_select(sums, num_regs, n_real, estimator=cfg.estimator)
-        s = int(s.item())
-        m, it = cascade_from_seed(m, s, edges, x_t, variant=variant,
-                                  max_iters=cfg.max_cascade_iters)
-        stats["cascade_sweeps"] += it
-        new_score = f32(count_visited(m, n_real, num_regs).item()) / regs
-        rel = (new_score - oldscore) / np.maximum(new_score, floor)
-        do_rebuild = bool(rel > threshold)
-        if do_rebuild:
-            m = ops.sketch_fill(m, reg_offset=0, seed=cfg.seed)
-            m, it = propagate_to_fixpoint(m, edges, x_t, variant=variant,
-                                          max_iters=cfg.max_propagate_iters)
-            stats["rebuild_sweeps"] += it
-            oldscore = new_score
+    for i in range(k):
+        with trace.span("single.round", phase="select", round=i) as rsp:
+            sums = _select.local_sums(m)
+            s, gain = _select.finish_select(sums, num_regs, n_real, estimator=cfg.estimator)
+            s = int(s.item())
+            with trace.span("single.cascade_fixpoint", phase="ring", round=i) as csp:
+                m, it = cascade_from_seed(m, s, edges, x_t, variant=variant,
+                                          max_iters=cfg.max_cascade_iters)
+                csp.sync(m)
+            stats["cascade_sweeps"] += it
+            new_score = f32(count_visited(m, n_real, num_regs).item()) / regs
+            rel = (new_score - oldscore) / np.maximum(new_score, floor)
+            do_rebuild = bool(rel > threshold)
+            if do_rebuild:
+                with trace.span("single.rebuild", phase="build", round=i) as bsp:
+                    m = ops.sketch_fill(m, reg_offset=0, seed=cfg.seed)
+                    m, it = propagate_to_fixpoint(m, edges, x_t, variant=variant,
+                                                  max_iters=cfg.max_propagate_iters)
+                    bsp.sync(m)
+                stats["rebuild_sweeps"] += it
+                oldscore = new_score
+            rsp.annotate(seed=s, rebuild=do_rebuild)
         seeds.append(s)
         gains.append(gain.item())
         scores.append(new_score)
         rebuilds.append(do_rebuild)
     return (np.asarray(seeds, np.int32), np.asarray(gains, np.float32),
             np.asarray(scores, np.float32), np.asarray(rebuilds, bool))
+
+
+def _annotate_build(sp, iters: int, num_edges: int, num_regs: int) -> None:
+    """The build span's bandwidth: per sweep each real edge reads its 20 B
+    of operands and one register row, and writes one, per register."""
+    roofline.annotate_bandwidth(sp, iters * num_edges * (20 + 2 * num_regs), sp.duration_s)
 
 
 def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
@@ -168,13 +190,18 @@ def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
         edges = edge_operands(g, cfg, dev)
     variant = resolve_model(cfg.model).variant
     x_t = x_tensor(x, dev)
-    if init_matrix is None:
-        m, iters = _build(edges, x_t, g.n, num_regs=x.shape[0], cfg=cfg,
-                          variant=variant, reg_offset=reg_offset)
-    else:
-        m, iters = propagate_to_fixpoint(_as_matrix(init_matrix, x.shape[0], dev), edges,
-                                         x_t, variant=variant,
-                                         max_iters=cfg.max_propagate_iters)
+    with trace.span("single.build_matrix", phase="build", n=g.n, registers=int(x.shape[0]),
+                    reg_offset=reg_offset, warm=init_matrix is not None) as sp:
+        if init_matrix is None:
+            m, iters = _build(edges, x_t, g.n, num_regs=x.shape[0], cfg=cfg,
+                              variant=variant, reg_offset=reg_offset)
+        else:
+            m, iters = propagate_to_fixpoint(_as_matrix(init_matrix, x.shape[0], dev),
+                                             edges, x_t, variant=variant,
+                                             max_iters=cfg.max_propagate_iters)
+        sp.sync(m)
+        sp.annotate(iters=iters)
+    _annotate_build(sp, iters, g.m_real, x.shape[0])
     return real_columns(m, x.shape[0]), iters, x
 
 
@@ -185,21 +212,30 @@ def find_seeds(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     t_prep = time.perf_counter()
-    g, x = normalize_inputs(g, cfg, x)
-    edges = edge_operands(g, cfg, dev)
-    variant = resolve_model(cfg.model).variant
-    x_t = x_tensor(x, dev)
+    with trace.span("single.prep", phase="plan", n=g.n, registers=cfg.num_registers) as sp:
+        g, x = normalize_inputs(g, cfg, x)
+        edges = edge_operands(g, cfg, dev)
+        variant = resolve_model(cfg.model).variant
+        x_t = x_tensor(x, dev)
+        sp.sync(edges)
     synchronize(dev)
     t0 = time.perf_counter()
     stats = {"prep_s": t0 - t_prep}
-    m, build_iters = _build(edges, x_t, g.n, num_regs=cfg.num_registers, cfg=cfg,
-                            variant=variant)
-    synchronize(dev)
-    t1 = time.perf_counter()
-    seeds, gains, scores, rebuilds = _seed_rounds(
-        m, edges, x_t, k=k, n_real=g.n, num_regs=cfg.num_registers, cfg=cfg,
-        variant=variant, stats=stats)
-    synchronize(dev)
+    with trace.span("single.find_seeds", phase="select", k=k, n=g.n,
+                    registers=cfg.num_registers, model=cfg.model):
+        with trace.span("single.build_matrix", phase="build", n=g.n,
+                        registers=cfg.num_registers, reg_offset=0, warm=False) as sp:
+            m, build_iters = _build(edges, x_t, g.n, num_regs=cfg.num_registers, cfg=cfg,
+                                    variant=variant)
+            sp.sync(m)
+            sp.annotate(iters=build_iters)
+        _annotate_build(sp, build_iters, g.m_real, cfg.num_registers)
+        synchronize(dev)
+        t1 = time.perf_counter()
+        seeds, gains, scores, rebuilds = _seed_rounds(
+            m, edges, x_t, k=k, n_real=g.n, num_regs=cfg.num_registers, cfg=cfg,
+            variant=variant, stats=stats)
+        synchronize(dev)
     stats.update(build_s=t1 - t0, rounds_s=time.perf_counter() - t1)
     return InfluenceResult(seeds=seeds, est_gains=gains, scores=scores,
                            rebuilds=rebuilds, propagate_iters=build_iters, x=x,
@@ -221,11 +257,13 @@ def find_seeds_warm(g: Graph, k: int, config: Optional[DiFuserConfig] = None, *,
     x = np.asarray(x, dtype=np.uint32)
     stats = {}
     t0 = time.perf_counter()
-    seeds, gains, scores, rebuilds = _seed_rounds(
-        _as_matrix(matrix, x.shape[0], dev), edges, x_tensor(x, dev), k=k, n_real=g.n,
-        num_regs=x.shape[0], cfg=cfg, variant=resolve_model(cfg.model).variant,
-        stats=stats)
-    synchronize(dev)
+    with trace.span("single.warm_rounds", phase="select", k=k, n=g.n,
+                    registers=int(x.shape[0])):
+        seeds, gains, scores, rebuilds = _seed_rounds(
+            _as_matrix(matrix, x.shape[0], dev), edges, x_tensor(x, dev), k=k, n_real=g.n,
+            num_regs=x.shape[0], cfg=cfg, variant=resolve_model(cfg.model).variant,
+            stats=stats)
+        synchronize(dev)
     stats.update(build_s=0.0, rounds_s=time.perf_counter() - t0)
     return InfluenceResult(seeds=seeds, est_gains=gains, scores=scores,
                            rebuilds=rebuilds, propagate_iters=0, x=x, stats=stats)

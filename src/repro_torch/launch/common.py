@@ -12,9 +12,10 @@ from repro_torch.graphs import (barabasi_albert_graph, erdos_renyi_graph,
 from repro_torch.obs import metrics, trace
 
 
+@trace.traced("launch.make_graph", phase="other")
 def make_graph(spec: str, setting: str, seed: int):
     """Parse ``--graph``: rmat:<scale> | rmat-skew:<scale> | er:<n> | ba:<n> |
-    snap:<path>."""
+    snap:<path>. Runs in a ``launch.make_graph`` span."""
     kind, _, arg = spec.partition(":")
     if kind == "rmat":
         return rmat_graph(int(arg), setting=setting, seed=seed)
@@ -32,6 +33,8 @@ def make_graph(spec: str, setting: str, seed: int):
 
 def add_common_im_args(ap: argparse.ArgumentParser, *,
                        registers_default: int = 1024) -> argparse.ArgumentParser:
+    """The workload flags of every launcher, and the ``--trace``/``--metrics``
+    group (``add_obs_args``)."""
     grp = ap.add_argument_group("workload")
     grp.add_argument("--graph", default="rmat:12",
                      help="rmat:<scale>|rmat-skew:<scale>|er:<n>|ba:<n>|snap:<path>")
@@ -47,6 +50,7 @@ def add_common_im_args(ap: argparse.ArgumentParser, *,
                      help="execution backend (auto: single unless a grid is asked for)")
     grp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                      help="cuda runs the CUDA kernels; cpu their plain versions")
+    add_obs_args(ap)
     return ap
 
 

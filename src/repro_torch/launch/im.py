@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch im --graph rmat:20 --setting 0.1 \
         --k 50 --registers 1024 [--model wc] [--device cuda|cpu] \
         [--backend auto|single|serial] [--partition degree] [--mu-v 2] \
-        [--validate] [--ris]
+        [--validate] [--ris] [--trace t.json] [--metrics m.jsonl]
 
 It prints what the reference launcher prints (``graph n=… m=…``, then
 ``backend=…``, with the measured partition stats on ``serial``, and
@@ -16,6 +16,12 @@ simulations, ``rng_seed = seed + 99``) and ``--ris`` runs the RIS/IMM
 baseline (4,000 RR sets) and scores its seeds the same way
 (``repro_torch.baselines``, host numpy): the reference launcher's lines and
 ``oracle_score``, ``ris_time_s``, ``ris_oracle``.
+
+``--trace OUT.json`` records the drivers' spans (``launch.make_graph``,
+``partition.*``, ``single.*`` or ``serial.*``) into a Chrome trace and
+prints ``trace: N spans -> … (lanes: …; span coverage …%)``;
+``--metrics OUT.jsonl`` writes the metrics snapshot (the planner's gauges
+and the serial ring's measured shard profile among them).
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import argparse
 import time
 
 from repro_torch.baselines import influence_score, ris_find_seeds
-from repro_torch.launch.common import add_common_im_args, make_graph
+from repro_torch.launch.common import add_common_im_args, make_graph, observe
 
 
 def run(argv=None) -> dict:
@@ -34,7 +40,9 @@ def run(argv=None) -> dict:
                     help="vertex shards of the serial grid (0: 2)")
     ap.add_argument("--validate", action="store_true", help="score seeds with the MC oracle")
     ap.add_argument("--ris", action="store_true", help="also run the RIS/IMM baseline")
-    return _run(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    with observe(args):
+        return _run(args)
 
 
 def _run(args) -> dict:

@@ -26,7 +26,7 @@ import time
 
 import numpy as np
 
-from repro_torch.launch.common import add_common_im_args, add_obs_args, make_graph, observe
+from repro_torch.launch.common import add_common_im_args, make_graph, observe
 from repro_torch.service import (AsyncInfluenceEngine, CoverageProbe, InfluenceEngine,
                                  MarginalGain, SketchStore, SpreadEstimate, TopKSeeds,
                                  summarize_latencies)
@@ -81,7 +81,6 @@ def run(argv=None, *, return_session: bool = False):
                          "cross-entry stack) under --async "
                          "(0: none); cost-aware eviction keeps the store under it")
     ap.add_argument("--save", default="", help="write the index npz here")
-    add_obs_args(ap)
     args = ap.parse_args(argv)
     with observe(args):
         out, sess, results = _run(args)

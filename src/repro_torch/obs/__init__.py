@@ -1,7 +1,8 @@
-"""repro_torch.obs: the port's observability layer for serving.
+"""repro_torch.obs: the port's observability layer for the drivers and the
+service.
 
-Standard library only at import (the trace module imports torch inside its
-device sync):
+The standard library and numpy only at import (the trace module imports
+torch inside its device sync):
 
   * :mod:`repro_torch.obs.trace`   hierarchical spans with a ``sync`` knob
     (the current CUDA stream of each declared output is synchronized at
@@ -11,6 +12,10 @@ device sync):
   * :mod:`repro_torch.obs.metrics` counters, gauges and streaming
     histograms behind a named registry, exported as a JSONL snapshot that
     the reference's registry reads too;
+  * :mod:`repro_torch.obs.shardprof` measured per-shard, per-ring-step
+    profiles of the serial ring's builds and fixpoints, comparable with the
+    planner's predicted ``PlanStats`` (the
+    ``partition.predicted_vs_measured_*`` gauges);
   * :mod:`repro_torch.obs.slo`     per-query-class latency budgets with a
     rolling-window p99, breach counters and a breach callback;
   * :mod:`repro_torch.obs.flight`  an always-on bounded ring of recent
@@ -19,8 +24,8 @@ device sync):
     listener).
 
 The launchers expose tracing and metrics with ``--trace OUT.json`` and
-``--metrics OUT.jsonl`` (``launch/common.observe``). The reference's shard
-profiles and HTML report are not ported yet (ROADMAP §1.5).
+``--metrics OUT.jsonl`` (``launch/common.observe``). The reference's HTML
+report is not ported yet (ROADMAP §1.5).
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                                      counter, gauge, histogram, load_jsonl, registry)
@@ -30,6 +35,7 @@ from repro_torch.obs.trace import (PHASES, Recorder, Span, add_span_listener,
 # importing flight installs the always-on span listener (bounded ring)
 from repro_torch.obs.flight import FlightRecorder, get_flight_recorder
 from repro_torch.obs.slo import SLOConfig, SLOWatchdog
+from repro_torch.obs.shardprof import MeasuredProfile, ShardProfiler, last_profile, profiles
 
 __all__ = [
     "PHASES", "Recorder", "Span", "get_recorder", "span", "traced",
@@ -38,4 +44,5 @@ __all__ = [
     "histogram", "load_jsonl", "registry",
     "FlightRecorder", "get_flight_recorder",
     "SLOConfig", "SLOWatchdog",
+    "MeasuredProfile", "ShardProfiler", "last_profile", "profiles",
 ]

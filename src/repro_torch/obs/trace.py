@@ -334,19 +334,23 @@ def span(name: str, *, phase: Optional[str] = None, sync=None,
     return Span(_RECORDER, name, phase, sync, attrs)
 
 
-def traced(name: Optional[str] = None, *, phase: Optional[str] = None):
+def traced(name: Optional[str] = None, *, phase: Optional[str] = None,
+           sync: bool = False):
     """Decorator form of :func:`span` for whole-function regions::
 
-        @traced("store.build_banks", phase="build")
-        def build(...): ...
+        @traced("partition.build_buckets", phase="plan", sync=True)
+        def build_partition_2d(...): ...
 
-    Same no-op-when-disabled contract as :func:`span`."""
+    ``sync=True`` declares the function's return value as the span's
+    output, so the device work behind it lands in the span. Same
+    no-op-when-disabled contract as :func:`span`."""
     def deco(fn):
         label = name or fn.__qualname__
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with span(label, phase=phase):
-                return fn(*args, **kwargs)
+            with span(label, phase=phase) as sp:
+                out = fn(*args, **kwargs)
+                return sp.sync(out) if sync else out
         return wrapper
     return deco

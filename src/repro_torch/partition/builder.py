@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs.structs import Graph
+from repro_torch.obs import trace
 from repro_torch.partition.plan import (PartitionPlan, SampledEdges, plan_partition,
                                         sample_edge_sets)
 
@@ -89,6 +90,7 @@ def _round_up(v: np.ndarray, block: int) -> np.ndarray:
     return v + (-v) % block
 
 
+@trace.traced("partition.build_buckets", phase="plan", sync=True)
 def build_partition_2d(g: Graph, x: np.ndarray, mu_v: int, mu_s: int, *,
                        seed: int = 0, method: str = "fasst", edge_block: int = 256,
                        model: str = "wc", plan: Optional[PartitionPlan] = None,
@@ -96,7 +98,8 @@ def build_partition_2d(g: Graph, x: np.ndarray, mu_v: int, mu_s: int, *,
                        device=None) -> Partition2D:
     """FASST sample split times planned vertex split, fully bucketed, on the
     device of ``sampled`` (made on ``device`` when not given). ``plan=None``
-    builds the ``block`` plan."""
+    builds the ``block`` plan. Runs in a ``partition.build_buckets`` span
+    that synchronizes the buckets."""
     if pad_mode not in ("global", "step"):
         raise ValueError(f"pad_mode must be 'global' or 'step', got {pad_mode!r}")
     r = x.shape[0]

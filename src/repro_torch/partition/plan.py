@@ -29,6 +29,7 @@ from repro_torch.core.fasst import partition_samples, sampled_by_any
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
+from repro_torch.obs import metrics, trace
 from repro_torch.partition.cost import PlanStats, predicted_stats
 
 
@@ -101,11 +102,14 @@ def _bits(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, np.uint32, ["C", "W"]).view(np.int32)).to(device)
 
 
+@trace.traced("partition.sample_edge_sets", phase="plan", sync=True)
 def sample_edge_sets(g: Graph, x: np.ndarray, mu_s: int, *, seed: int = 0,
                      model: str = "wc", method: str = "fasst",
                      device=None) -> SampledEdges:
     """Each sim shard's sampled edge set (edges live under at least one of
-    its samples), on ``device`` (CUDA unless ``"cpu"`` is passed)."""
+    its samples), on ``device`` (CUDA unless ``"cpu"`` is passed), in a
+    ``partition.sample_edge_sets`` span (the port's; the reference has
+    none here)."""
     dev = resolve_device(device)
     mdl = resolve_model(model)
     ep = mdl.edge_params(g, seed=seed)
@@ -254,35 +258,43 @@ def plan_partition(g: Graph, mu_v: int, *, mu_s: int = 1, strategy: str = "block
     """A ``PartitionPlan`` for a ``(mu_v, mu_s)`` grid. ``sampled`` (or
     ``x``, which samples on ``device``) weights each edge by the sim shards
     that sample it; without either, plain degrees are used. The plan carries
-    its predicted ``PlanStats``."""
+    its predicted ``PlanStats``, which also set the ``partition.*`` gauges;
+    the planning runs in a ``partition.plan`` span."""
     fn = _STRATEGIES.get(strategy)
     if fn is None:
         raise KeyError(f"unknown partition strategy {strategy!r}; "
                        f"registered: {sorted(_STRATEGIES)}")
-    n_pad = g.n_pad + ((-g.n_pad) % mu_v)
-    n_loc = n_pad // mu_v
-    c_e = _edge_multiplicity(g, x, mu_s, seed=seed, model=model, method=method,
-                             sampled=sampled, device=device)
-    w_v = _vertex_weights(g, c_e)
-    owner = np.asarray(fn(g, c_e, w_v, mu_v, n_loc, seed), dtype=np.int64)
-    if owner.shape[0] != g.n:
-        raise ValueError(f"strategy {strategy!r} assigned {owner.shape[0]} "
-                         f"vertices, expected {g.n}")
-    counts = np.bincount(owner, minlength=mu_v)
-    if counts.max(initial=0) > n_loc:
-        raise ValueError(f"strategy {strategy!r} overfilled a shard: "
-                         f"{counts.tolist()} vs capacity {n_loc}")
-    # padding ids fill the leftover slots, ascending id into ascending shard;
-    # the stable sort keeps ascending original id within each shard
-    pad_owner = np.repeat(np.arange(mu_v, dtype=np.int64), n_loc - counts)
-    inv_perm = np.argsort(np.concatenate([owner, pad_owner]), kind="stable").astype(np.int32)
-    perm = np.empty_like(inv_perm)
-    perm[inv_perm] = np.arange(n_pad, dtype=np.int32)
-    if sampled is not None:
-        j_loc = int(sampled.x_shards.shape[1])
-    else:
-        j_loc = (np.asarray(x).shape[0] // mu_s) if x is not None else 0
-    stats = predicted_stats(g, strategy, perm, c_e, mu_v, mu_s, n_loc, j_loc)
+    with trace.span("partition.plan", phase="plan", strategy=strategy, mu_v=mu_v,
+                    mu_s=mu_s, n=g.n):
+        n_pad = g.n_pad + ((-g.n_pad) % mu_v)
+        n_loc = n_pad // mu_v
+        c_e = _edge_multiplicity(g, x, mu_s, seed=seed, model=model, method=method,
+                                 sampled=sampled, device=device)
+        w_v = _vertex_weights(g, c_e)
+        owner = np.asarray(fn(g, c_e, w_v, mu_v, n_loc, seed), dtype=np.int64)
+        if owner.shape[0] != g.n:
+            raise ValueError(f"strategy {strategy!r} assigned {owner.shape[0]} "
+                             f"vertices, expected {g.n}")
+        counts = np.bincount(owner, minlength=mu_v)
+        if counts.max(initial=0) > n_loc:
+            raise ValueError(f"strategy {strategy!r} overfilled a shard: "
+                             f"{counts.tolist()} vs capacity {n_loc}")
+        # padding ids fill the leftover slots, ascending id into ascending shard;
+        # the stable sort keeps ascending original id within each shard
+        pad_owner = np.repeat(np.arange(mu_v, dtype=np.int64), n_loc - counts)
+        inv_perm = np.argsort(np.concatenate([owner, pad_owner]), kind="stable").astype(np.int32)
+        perm = np.empty_like(inv_perm)
+        perm[inv_perm] = np.arange(n_pad, dtype=np.int32)
+        if sampled is not None:
+            j_loc = int(sampled.x_shards.shape[1])
+        else:
+            j_loc = (np.asarray(x).shape[0] // mu_s) if x is not None else 0
+        stats = predicted_stats(g, strategy, perm, c_e, mu_v, mu_s, n_loc, j_loc)
+    metrics.gauge("partition.ring_bytes_per_sweep",
+                  strategy=strategy).set(stats.ring_bytes_per_sweep)
+    metrics.gauge("partition.edge_imbalance", strategy=strategy).set(stats.edge_imbalance)
+    metrics.gauge("partition.bucket_imbalance",
+                  strategy=strategy).set(stats.bucket_imbalance)
     return PartitionPlan(strategy=strategy, n=g.n, n_pad=n_pad, n_loc=n_loc,
                          mu_v=mu_v, mu_s=mu_s, perm=perm, inv_perm=inv_perm,
                          predicted=stats)

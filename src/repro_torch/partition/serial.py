@@ -28,6 +28,19 @@ the largest ``num_partials`` of the state's buckets, serves every propagate
 and cascade merge: the launches are ordered on one stream. Seeds are
 original vertex ids whatever the plan's relabeling.
 
+``repair_plan_shards`` is the shard-restricted insertion repair: the ring
+state starts from a plan-order matrix (a sound lower bound of the new
+fixpoint) instead of a fill, and each sweep merges only the buckets that
+read from a shard the previous sweep changed (``sweep_propagate_restricted``),
+starting from the shards a delta touched.
+
+Observability: the drivers run in the reference's spans (``serial.*``), each
+synchronizing the grid it produced, and with a ``ShardProfiler`` set
+(``obs.shardprof``, on by default for the builds) every (shard, ring step)
+merge of a full sweep is timed, by a pair of CUDA events on the card, read
+after the sweep's flag sync, and by the host clock on the CPU. Without a
+profiler no event is recorded.
+
 Any ``j_loc`` runs: each sim shard's block and x are ``sketch.padded_regs(j_loc)``
 wide, the padding columns VISITED and inert (``core.sketch``), and
 ``canonical_matrix`` and ``visited_count`` read the real columns only. The
@@ -50,8 +63,10 @@ from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.edges import group_rows, with_work
+from repro_torch.obs import shardprof, trace
 from repro_torch.partition.builder import Partition2D, build_partition_2d
 from repro_torch.partition.plan import PartitionPlan, plan_partition, sample_edge_sets
+from repro_torch.utils import roofline
 
 
 def _bucket_rows(part: Partition2D, arrays, counts: np.ndarray):
@@ -65,6 +80,41 @@ def _bucket_rows(part: Partition2D, arrays, counts: np.ndarray):
             for kk in range(part.mu_v)]
 
 
+class _MergeTimer:
+    """Times each merge of one sweep for a ``ShardProfiler``: a pair of CUDA
+    events around each launch on the card, read by ``finish`` after the
+    sweep's flag sync; the host clock on the CPU, where a merge runs
+    synchronously."""
+
+    def __init__(self, profiler, device: torch.device):
+        self.profiler = profiler
+        self.cuda = device.type == "cuda"
+        self.pending: list = []
+        self._start = None
+
+    def start(self) -> None:
+        if self.cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._start = time.perf_counter()
+
+    def stop(self, v: int, kk: int, nbytes: int) -> None:
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.pending.append((v, kk, nbytes, self._start, end))
+        else:
+            self.profiler.record(v, kk, time.perf_counter() - self._start, nbytes)
+
+    def finish(self) -> None:
+        """Fold the sweep's timings into the profiler (after its sync)."""
+        for v, kk, nbytes, start, end in self.pending:
+            self.profiler.record(v, kk, start.elapsed_time(end) * 1e-3, nbytes)
+        self.pending.clear()
+        self.profiler.count_sweep()
+
+
 class _RingState:
     """Shard-grid register state and the bucket sweeps over it.
 
@@ -75,15 +125,22 @@ class _RingState:
     depend on it. ``partial`` is the split rows' scratch of every bucket
     merge. ``m``, ``fresh``, ``x`` and ``partial`` are ``padded_regs(j_loc)``
     wide.
+
+    ``matrix`` (a ``(mu_v, mu_s, n_loc, j_loc)`` grid) starts the state from
+    that grid, copied, instead of the fill; ``fresh`` is then None and
+    ``refill`` refuses (the repair path never calls it). ``profiler``: an
+    ``obs.shardprof.ShardProfiler`` that times the merges of
+    ``sweep_propagate`` and ``sweep_cascade`` when set.
     """
 
     def __init__(self, part: Partition2D, g: Graph, cfg: DiFuserConfig, *,
                  reg_offset: int = 0, local_sweeps: int = 0, fuse_sweeps: bool = False,
-                 lane_fill: int = 0):
+                 lane_fill: int = 0, matrix: Optional[torch.Tensor] = None):
         self.part, self.cfg = part, cfg
         self.local_sweeps = int(local_sweeps)
         self.fuse_sweeps = bool(fuse_sweeps)
         self.lane_fill = int(lane_fill)
+        self.profiler = None
         self.variant = resolve_model(cfg.model).variant
         dev = self.device = part.p_h[0].device
         mu_v, mu_s, n_loc, j_loc = part.mu_v, part.mu_s, part.n_loc, part.j_loc
@@ -103,6 +160,15 @@ class _RingState:
                                    dtype=torch.int8, device=dev)
         self.p_width = [int(a.shape[-1]) for a in part.p_h]
         self.c_width = [int(a.shape[-1]) for a in part.c_h]
+        if matrix is not None:
+            if tuple(matrix.shape) != (mu_v, mu_s, n_loc, j_loc):
+                raise ValueError(f"matrix grid {tuple(matrix.shape)} is not "
+                                 f"{(mu_v, mu_s, n_loc, j_loc)}")
+            self.fresh = None
+            self.m = torch.full((mu_v, mu_s, n_loc, j_pad), VISITED, dtype=torch.int8,
+                                device=dev)
+            self.m[..., :j_loc] = matrix   # a copy: the caller's tensor is never written
+            return
         canon = ops.sketch_fill(blank_matrix(part.n_pad, mu_s * j_loc, dev),
                                 reg_offset=reg_offset, seed=cfg.seed)
         self.fresh = torch.full((mu_v, mu_s, n_loc, j_pad), VISITED, dtype=torch.int8,
@@ -124,27 +190,46 @@ class _RingState:
         perm = torch.from_numpy(p.plan.perm[:n_pad].astype(np.int64)).to(self.device)
         return planned.index_select(0, perm)
 
-    def _ring(self, merge, rows, widths, steps, **kw) -> bool:
-        """One Jacobi sweep of ``merge`` over the buckets of ``steps``; the
-        merges write a copy of the grid and read the grid. ``kw`` goes to
-        every merge."""
+    def _sweep(self, merge, rows, widths, steps, *, read_dirty=None, counts=None):
+        """One Jacobi sweep of ``merge`` over the buckets of ``steps``, only
+        those whose read shard ``(v + kk) % mu_v`` is in ``read_dirty`` when
+        it is given; the merges write a copy of the grid and read the grid.
+        With ``counts`` (the buckets' real edges) and a profiler set, each
+        merge is timed. Returns the merges' changed flags, the vertex shard
+        of each, and the timer (None when nothing is timed)."""
         p = self.part
+        timer = (_MergeTimer(self.profiler, self.device)
+                 if counts is not None and self.profiler is not None else None)
         out = self.m.clone()
-        flags = []
+        flags, owners = [], []
         for v in range(p.mu_v):
             for s in range(p.mu_s):
                 for kk in steps:
-                    if widths[kk]:
-                        flags.append(merge(out[v, s], self.m[(v + kk) % p.mu_v, s],
-                                           rows[kk][v][s], self.x[s],
-                                           variant=self.variant, **kw))
+                    r = (v + kk) % p.mu_v
+                    if not widths[kk] or (read_dirty is not None and r not in read_dirty):
+                        continue
+                    if timer is not None:
+                        timer.start()
+                    flags.append(merge(out[v, s], self.m[r, s], rows[kk][v][s], self.x[s],
+                                       variant=self.variant, partial=self.partial))
+                    if timer is not None:
+                        timer.stop(v, kk, shardprof.bucket_bytes(counts[v, s, kk], p.j_loc))
+                    owners.append(v)
         self.m = out
-        return bool(torch.cat(flags).any().item()) if flags else False
+        return flags, owners, timer
+
+    def _ring(self, merge, rows, widths, steps, counts=None) -> bool:
+        """One sweep (``_sweep``); True when a register changed. One host
+        read of the flags, after which the merges' timings are folded in."""
+        flags, _, timer = self._sweep(merge, rows, widths, steps, counts=counts)
+        changed = bool(torch.cat(flags).any().item()) if flags else False
+        if timer is not None:
+            timer.finish()
+        return changed
 
     def sweep_local(self) -> bool:
         """One comm-free propagate sweep: the kk = 0 buckets only."""
-        return self._ring(ops.bucket_propagate, self.p_rows, self.p_width, (0,),
-                          partial=self.partial)
+        return self._ring(ops.bucket_propagate, self.p_rows, self.p_width, (0,))
 
     def sweep_local_fused(self, num_sweeps: int) -> None:
         """``num_sweeps`` x ``sweep_local`` as one ``fused_sweep`` call per
@@ -167,11 +252,27 @@ class _RingState:
                 if not self.sweep_local():
                     break
         return self._ring(ops.bucket_propagate, self.p_rows, self.p_width,
-                          range(self.part.mu_v), partial=self.partial)
+                          range(self.part.mu_v), counts=self.part.p_counts)
+
+    def sweep_propagate_restricted(self, read_dirty) -> set:
+        """One propagate sweep over only the buckets whose read shard is in
+        ``read_dirty``; returns the vertex shards whose rows changed (the
+        next sweep's dirty set), from the merges' flags summed per shard
+        and read once. From a sound lower bound of the fixpoint, changes
+        start only at rows a dirty shard feeds, so the buckets that read
+        clean shards would change nothing. No comm-free prologue runs."""
+        read_dirty = {int(v) for v in read_dirty}
+        flags, owners, _ = self._sweep(ops.bucket_propagate, self.p_rows, self.p_width,
+                                       range(self.part.mu_v), read_dirty=read_dirty)
+        if not flags:
+            return set()
+        per_v = torch.zeros(self.part.mu_v, dtype=torch.int32, device=self.device)
+        per_v.index_add_(0, torch.tensor(owners, device=self.device), torch.cat(flags))
+        return {v for v, c in enumerate(per_v.tolist()) if c}
 
     def sweep_cascade(self) -> bool:
         return self._ring(ops.bucket_cascade, self.c_rows, self.c_width,
-                          range(self.part.mu_v), partial=self.partial)
+                          range(self.part.mu_v), counts=self.part.c_counts)
 
     @staticmethod
     def fixpoint(sweep, max_iters: int) -> int:
@@ -217,6 +318,8 @@ class _RingState:
         return int(total.item())
 
     def refill(self) -> None:
+        if self.fresh is None:
+            raise RuntimeError("refill() needs a state started from the fill")
         self.m = torch.where(self.m == VISITED, self.m, self.fresh)
 
 
@@ -257,6 +360,24 @@ def _prepare(g: Graph, x: np.ndarray, cfg: DiFuserConfig, *, mu_v: int, mu_s: in
     return part
 
 
+def _build_profiler(st: _RingState, part: Partition2D, phase: str) -> None:
+    """Give a build's ring state its shard profiler, when capture is on."""
+    if shardprof.enabled():
+        st.profiler = shardprof.profile_for_partition(part, backend="serial", phase=phase)
+
+
+def _publish_profile(st: _RingState, part: Partition2D, sp) -> None:
+    """Publish the build's measured profile against the plan's prediction
+    and attribute its bandwidth to the span ``sp``. The null span (tracing
+    off) reports 0.0 seconds: the profiler's own clock is used then."""
+    if st.profiler is None:
+        return
+    prof = shardprof.publish(st.profiler.finish(sp.duration_s or None),
+                             predicted=part.plan.predicted if part.plan else None)
+    roofline.annotate_bandwidth(sp, int(prof.step_bytes.sum()), prof.wall_s)
+    st.profiler = None   # the rounds reuse the state; the profile is the build's
+
+
 def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
                            *, mu_v: int = 2, mu_s: int = 2, strategy: str = "block",
                            plan: Optional[PartitionPlan] = None,
@@ -268,11 +389,16 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     seeds are original vertex ids. ``result.stats`` holds the host clock of
     each phase (sort_s, sample_s, plan_s, buckets_s, state_s, build_s,
     rounds_s, each ending in a device sync) and the sweep counts. ``plan``
-    replaces the ``strategy``'s planning with a precomputed plan."""
+    replaces the ``strategy``'s planning with a precomputed plan. The sort
+    runs in ``serial.sort_by_dst`` and the ring state (work lists, fill) is
+    made in ``serial.ring_state`` (the port's spans), the build runs in ``serial.build_fixpoint`` and each round in
+    ``serial.round`` (with ``serial.cascade_fixpoint`` and
+    ``serial.rebuild`` inside)."""
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     t_sort = time.perf_counter()
-    g = g.sorted_by_dst()
+    with trace.span("serial.sort_by_dst", phase="plan", n=g.n):
+        g = g.sorted_by_dst()
     if x is None:
         x = make_x_vector(cfg.num_registers, seed=cfg.seed)
     x = np.asarray(x, dtype=np.uint32)
@@ -280,12 +406,20 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     part = _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=strategy, plan=plan,
                     pad_mode=pad_mode, device=dev, stats=stats)
     t0 = time.perf_counter()
-    st = _RingState(part, g, cfg, local_sweeps=local_sweeps, fuse_sweeps=fuse_sweeps,
-                    lane_fill=lane_fill)
+    with trace.span("serial.ring_state", phase="build", mu_v=mu_v, mu_s=mu_s) as sp:
+        st = _RingState(part, g, cfg, local_sweeps=local_sweeps, fuse_sweeps=fuse_sweeps,
+                        lane_fill=lane_fill)
+        sp.sync(st.m)
+    _build_profiler(st, part, "fixpoint")
     synchronize(dev)
     t1 = time.perf_counter()
     total_regs = part.mu_s * part.j_loc
-    build_iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
+    with trace.span("serial.build_fixpoint", phase="fixpoint", mu_v=mu_v,
+                    mu_s=mu_s) as sp:
+        build_iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
+        sp.sync(st.m)
+        sp.annotate(iters=build_iters)
+    _publish_profile(st, part, sp)
     synchronize(dev)
     t2 = time.perf_counter()
 
@@ -297,17 +431,24 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     oldscore = f32(0.0)
     stats.update(cascade_sweeps=0, rebuild_sweeps=0)
     for i in range(k):
-        s_v, gain = st.select(total_regs, part.n_pad)
-        st.commit(s_v)
-        stats["cascade_sweeps"] += st.fixpoint(st.sweep_cascade, cfg.max_cascade_iters)
-        new_score = f32(st.visited_count()) / f32(total_regs)
-        rel = (new_score - oldscore) / np.maximum(new_score, f32(1e-9))
-        do_rebuild = bool(rel > f32(cfg.rebuild_threshold))
-        if do_rebuild:
-            st.refill()
-            stats["rebuild_sweeps"] += st.fixpoint(st.sweep_propagate,
-                                                   cfg.max_propagate_iters)
-            oldscore = new_score
+        with trace.span("serial.round", phase="select", round=i) as rsp:
+            s_v, gain = st.select(total_regs, part.n_pad)
+            st.commit(s_v)
+            with trace.span("serial.cascade_fixpoint", phase="ring", round=i) as csp:
+                stats["cascade_sweeps"] += st.fixpoint(st.sweep_cascade,
+                                                       cfg.max_cascade_iters)
+                csp.sync(st.m)
+            new_score = f32(st.visited_count()) / f32(total_regs)
+            rel = (new_score - oldscore) / np.maximum(new_score, f32(1e-9))
+            do_rebuild = bool(rel > f32(cfg.rebuild_threshold))
+            if do_rebuild:
+                with trace.span("serial.rebuild", phase="build", round=i) as bsp:
+                    st.refill()
+                    stats["rebuild_sweeps"] += st.fixpoint(st.sweep_propagate,
+                                                           cfg.max_propagate_iters)
+                    bsp.sync(st.m)
+                oldscore = new_score
+            rsp.annotate(seed=s_v, rebuild=do_rebuild)
         seeds[i], gains[i], scores[i], rebuilds[i] = s_v, gain, new_score, do_rebuild
     synchronize(dev)
     stats.update(state_s=t1 - t0, build_s=t2 - t1, rounds_s=time.perf_counter() - t2)
@@ -322,11 +463,11 @@ def build_matrix_ring_serial(g: Graph, config: Optional[DiFuserConfig] = None,
                              plan: Optional[PartitionPlan] = None, pad_mode: str = "step",
                              reg_offset: int = 0, local_sweeps: int = 0,
                              fuse_sweeps: bool = False, lane_fill: int = 0, device=None):
-    """Alg. 4 lines 3-6 on the serial ring: fill + propagate to a fixpoint.
-    Expects ``g`` sorted by destination and ``x`` sorted. Returns ``(matrix
-    int8[g.n_pad, len(x)], iters, Partition2D)`` with the matrix in the
-    single-device layout, equal to ``core.difuser.build_sketch_matrix``'s
-    with the same ``reg_offset``."""
+    """Alg. 4 lines 3-6 on the serial ring: fill + propagate to a fixpoint,
+    in a ``serial.build_matrix`` span. Expects ``g`` sorted by destination
+    and ``x`` sorted. Returns ``(matrix int8[g.n_pad, len(x)], iters,
+    Partition2D)`` with the matrix in the single-device layout, equal to
+    ``core.difuser.build_sketch_matrix``'s with the same ``reg_offset``."""
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     if x is None:
@@ -334,7 +475,58 @@ def build_matrix_ring_serial(g: Graph, config: Optional[DiFuserConfig] = None,
     x = np.asarray(x, dtype=np.uint32)
     part = _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=strategy, plan=plan,
                     pad_mode=pad_mode, device=dev, stats={})
-    st = _RingState(part, g, cfg, reg_offset=reg_offset, local_sweeps=local_sweeps,
-                    fuse_sweeps=fuse_sweeps, lane_fill=lane_fill)
-    iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
+    with trace.span("serial.build_matrix", phase="build", mu_v=mu_v, mu_s=mu_s,
+                    reg_offset=reg_offset) as sp:
+        st = _RingState(part, g, cfg, reg_offset=reg_offset, local_sweeps=local_sweeps,
+                        fuse_sweeps=fuse_sweeps, lane_fill=lane_fill)
+        _build_profiler(st, part, "build")
+        iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
+        sp.sync(st.m)
+        sp.annotate(iters=iters)
+    _publish_profile(st, part, sp)
     return st.canonical_matrix(g.n_pad), iters, part
+
+
+def repair_plan_shards(g: Graph, config: DiFuserConfig, x: np.ndarray,
+                       planned_m: torch.Tensor, plan: PartitionPlan, touched, *,
+                       pad_mode: str = "step"):
+    """Shard-restricted monotone insertion repair on the serial ring, on the
+    device of ``planned_m``.
+
+    ``planned_m`` is the pre-delta matrix in the plan's row order
+    (``StoreEntry.planned_matrix()``, all banks' columns), a sound lower
+    bound of the post-delta fixpoint; ``g`` is the post-delta graph, sorted
+    by destination; ``x`` the entry's sorted x; ``touched`` the vertex
+    shards the delta's endpoints land in (``DeltaReport.plan_shards_touched``).
+
+    The first sweep merges only the buckets that read a touched shard, and
+    each later one only those that read a shard the sweep before changed,
+    so a localized delta sweeps its own shards alone. Returns
+    ``(planned_matrix, sweeps, shards_swept)``; the matrix is a new tensor,
+    byte-equal to a full rebuild (a max-merge fixpoint above a sound lower
+    bound is unique).
+    """
+    x = np.asarray(x, dtype=np.uint32)
+    part = build_partition_2d(g, x, plan.mu_v, plan.mu_s, seed=config.seed,
+                              model=config.model, plan=plan, pad_mode=pad_mode,
+                              device=planned_m.device)
+    grid = planned_m.reshape(plan.mu_v, plan.n_loc, part.mu_s, part.j_loc).permute(0, 2, 1, 3)
+    with trace.span("serial.ring_state", phase="repair", mu_v=plan.mu_v,
+                    mu_s=part.mu_s) as sp:
+        st = _RingState(part, g, config, matrix=grid)
+        sp.sync(st.m)
+    dirty = {int(v) for v in touched}
+    sweeps = 0
+    swept: set = set()
+    with trace.span("serial.repair", phase="repair", touched=len(dirty)) as sp:
+        while dirty and sweeps < config.max_propagate_iters:
+            swept |= dirty
+            with trace.span("serial.repair_sweep", dirty=len(dirty), sweep=sweeps,
+                            shards=tuple(sorted(dirty))) as ssp:
+                dirty = st.sweep_propagate_restricted(dirty)
+                ssp.sync(st.m)
+            sweeps += 1
+        sp.annotate(sweeps=sweeps, shards_swept=len(swept))
+    planned = st.m[..., :part.j_loc].permute(0, 2, 1, 3).reshape(
+        plan.mu_v * plan.n_loc, part.mu_s * part.j_loc)
+    return planned, sweeps, tuple(sorted(swept))

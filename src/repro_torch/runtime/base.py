@@ -8,6 +8,14 @@ len(x)]`` with rows in original-id order). Results are backend-invariant:
 the same graph and sketch setting give the same seeds and matrix on every
 backend.
 
+Two inner hooks serve repair-style callers that hold a sound lower bound of
+the fixpoint: ``fixpoint`` re-propagates a canonical matrix and ``cascade``
+spreads one committed seed. A backend whose capabilities report
+``shard_repair`` also implements ``repair_plan_shards``, which
+``service.delta.apply_delta`` dispatches to for a plan-attached entry. Each
+hook raises ``NotImplementedError``, naming the backend, where it is not
+implemented.
+
 ``resolve_backend`` implements ``backend="auto"``: ``single`` for one shard,
 ``serial`` for a grid of several (the port has no mesh backend yet). An
 explicit name is honored and raises, with the reason, when that backend
@@ -35,6 +43,7 @@ class BackendCapabilities:
     name: str
     distributed: bool        # shards work across a (mu_v, mu_s) grid
     description: str = ""
+    shard_repair: bool = False   # can re-propagate individual plan shards
 
 
 @dataclasses.dataclass
@@ -79,6 +88,25 @@ class Backend(abc.ABC):
         ``edges``: the ``EdgeOperands`` of the normalized graph on the
         device, a hint that only the ``single`` backend takes (a store of
         several banks uploads them once); ``plan`` as in ``find_seeds``."""
+
+    def fixpoint(self, m, g: Graph, spec: RunSpec, x: np.ndarray, *, edges=None):
+        """Hook: re-propagate an existing canonical matrix to its fixpoint.
+        Returns ``(matrix, iters)``."""
+        raise NotImplementedError(f"backend {self.name!r} has no fixpoint hook")
+
+    def cascade(self, m, seed_vertex: int, g: Graph, spec: RunSpec, x: np.ndarray, *,
+                edges=None):
+        """Hook: commit ``seed_vertex`` and spread its cascade to a fixpoint.
+        Returns ``(matrix, iters)``."""
+        raise NotImplementedError(f"backend {self.name!r} has no cascade hook")
+
+    def repair_plan_shards(self, g: Graph, spec: RunSpec, x: np.ndarray, planned_m, plan,
+                           touched):
+        """Shard-restricted repair of a plan-order matrix; returns
+        ``(planned_matrix, sweeps, shards_swept)``. Every backend whose
+        ``capabilities().shard_repair`` is True implements it."""
+        raise NotImplementedError(
+            f"backend {self.name!r} reports no shard_repair capability")
 
 
 _BACKENDS: Dict[str, Backend] = {}

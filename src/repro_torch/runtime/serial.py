@@ -1,16 +1,22 @@
 """``serial`` backend: the 2-D ring schedule run serially on one device
-(``partition/serial.py``), over a ``(mu_v, mu_s)`` shard grid."""
+(``partition/serial.py``), over a ``(mu_v, mu_s)`` shard grid. It is the
+backend that repairs individual plan shards of a store matrix
+(``repair_plan_shards``), the hook behind ``service.delta``'s shard
+repair; its ``fixpoint`` hook is that repair with every shard dirty."""
 from __future__ import annotations
 
 import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.difuser import normalize_inputs
+from repro_torch.core.sketch import VISITED
 from repro_torch.device import resolve_device
 from repro_torch.graphs.structs import Graph
 from repro_torch.partition import serial as _serial
+from repro_torch.partition.plan import plan_partition
 from repro_torch.runtime.base import (Backend, BackendCapabilities, RunReport,
                                       register_backend)
 from repro_torch.runtime.spec import RunSpec
@@ -24,7 +30,7 @@ class SerialRingBackend(Backend):
     name = "serial"
 
     def capabilities(self) -> BackendCapabilities:
-        return BackendCapabilities(name=self.name, distributed=True,
+        return BackendCapabilities(name=self.name, distributed=True, shard_repair=True,
                                    description="serial-ring executor of the 2-D schedule")
 
     def supports(self, g, spec: RunSpec):
@@ -61,6 +67,40 @@ class SerialRingBackend(Backend):
             local_sweeps=spec.local_sweeps, fuse_sweeps=spec.fuse_sweeps,
             lane_fill=spec.lane_fill, device=device)
         return m, iters
+
+    def fixpoint(self, m, g: Graph, spec: RunSpec, x: np.ndarray, *, edges=None,
+                 device=None):
+        """A canonical matrix to its fixpoint through a full ring repair (every
+        shard starts dirty). ``g`` sorted by destination, ``x`` sorted; a
+        tensor ``m`` stays on its device, a numpy one goes to ``device``.
+        Returns ``(matrix, iters)``; ``m`` is not written."""
+        if not isinstance(m, torch.Tensor):
+            m = torch.from_numpy(np.require(m, np.int8, ["C", "W"])).to(
+                resolve_device(device))
+        mu_v, mu_s = _grid(spec)
+        x = np.asarray(x, dtype=np.uint32)
+        if x.shape[0] % mu_s:
+            mu_s = 1
+        cfg = spec.difuser_config()
+        plan = plan_partition(g, mu_v, mu_s=mu_s, strategy=spec.partition, seed=cfg.seed,
+                              model=cfg.model)
+        extra = plan.n_pad - g.n_pad
+        if extra > 0:
+            m = torch.cat([m, torch.full((extra, m.shape[1]), VISITED, dtype=torch.int8,
+                                         device=m.device)])
+        inv = torch.from_numpy(plan.inv_perm.astype(np.int64)).to(m.device)
+        planned, iters, _ = _serial.repair_plan_shards(
+            g, cfg, x, m.index_select(0, inv), plan, range(mu_v), pad_mode=spec.pad_mode)
+        perm = torch.from_numpy(plan.perm[:g.n_pad].astype(np.int64)).to(m.device)
+        return planned.index_select(0, perm), iters
+
+    def repair_plan_shards(self, g: Graph, spec: RunSpec, x: np.ndarray, planned_m, plan,
+                           touched):
+        """``partition.serial.repair_plan_shards``: ring sweeps restricted to
+        the shards a delta dirtied and to those the repair spreads into, on
+        the device of ``planned_m``."""
+        return _serial.repair_plan_shards(g, spec.difuser_config(), x, planned_m, plan,
+                                          touched, pad_mode=spec.pad_mode)
 
 
 register_backend(SerialRingBackend())

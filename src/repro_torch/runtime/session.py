@@ -85,12 +85,14 @@ class InfluenceSession:
 
     def apply_delta(self, delta: GraphDelta, *,
                     staleness_threshold: float = 0.1) -> DeltaReport:
-        """Apply a graph delta to the resident entry; the session's graph
-        follows the entry's, so the cold and the resident paths keep
-        answering about the same graph."""
+        """Apply a graph delta to the resident entry through the session's
+        backend: on ``serial`` (the shard-repair backend) with a plan
+        attached, insertions sweep only the plan shards the delta dirtied.
+        The session's graph follows the entry's, so the cold and the
+        resident paths keep answering about the same graph."""
         e = self.entry()
         report = apply_delta(self.store, e.key, delta,
                              staleness_threshold=staleness_threshold,
-                             backend=self.backend.name)
+                             backend=self.backend)
         self.graph = self.store.entry(e.key).graph
         return report

@@ -1,13 +1,20 @@
-"""``single`` backend: the single-device Alg. 4 driver of core/difuser.py."""
+"""``single`` backend: the single-device Alg. 4 driver of core/difuser.py,
+and its two inner hooks (``fixpoint``, ``cascade``) over the port's edge
+operands."""
 from __future__ import annotations
 
 import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import difuser as _difuser
+from repro_torch.core.cascade import cascade_from_seed
+from repro_torch.core.simulate import propagate_to_fixpoint
+from repro_torch.core.sketch import real_columns
 from repro_torch.device import resolve_device
+from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
 from repro_torch.runtime.base import (Backend, BackendCapabilities, RunReport,
                                       register_backend)
@@ -36,6 +43,37 @@ class SingleDeviceBackend(Backend):
             g, spec.difuser_config(), x, reg_offset=reg_offset, normalized=normalized,
             edges=edges, device=device)
         return m, iters
+
+    @staticmethod
+    def _operands(m, g: Graph, spec: RunSpec, x: np.ndarray, edges, device):
+        """(padded matrix, edges, x, variant, config) on the matrix's device
+        (a numpy ``m`` goes to ``device``)."""
+        cfg = spec.difuser_config()
+        dev = m.device if isinstance(m, torch.Tensor) else resolve_device(device)
+        if edges is None:
+            edges = _difuser.edge_operands(g, cfg, dev)
+        x = np.asarray(x, dtype=np.uint32)
+        return (_difuser._as_matrix(m, x.shape[0], dev), edges, _difuser.x_tensor(x, dev),
+                resolve_model(cfg.model).variant, cfg)
+
+    def fixpoint(self, m, g: Graph, spec: RunSpec, x: np.ndarray, *, edges=None,
+                 device=None):
+        """Propagate sweeps from ``m`` (canonical layout; ``g`` sorted by
+        destination, ``x`` sorted) to the fixpoint. Returns ``(matrix,
+        iters)``; ``m`` is not written."""
+        m_p, edges, x_t, variant, cfg = self._operands(m, g, spec, x, edges, device)
+        out, iters = propagate_to_fixpoint(m_p, edges, x_t, variant=variant,
+                                           max_iters=cfg.max_propagate_iters)
+        return real_columns(out, len(x)), iters
+
+    def cascade(self, m, seed_vertex: int, g: Graph, spec: RunSpec, x: np.ndarray, *,
+                edges=None, device=None):
+        """Commit ``seed_vertex`` in ``m`` and spread its cascade to the
+        fixpoint. Returns ``(matrix, iters)``; ``m`` is not written."""
+        m_p, edges, x_t, variant, cfg = self._operands(m, g, spec, x, edges, device)
+        out, iters = cascade_from_seed(m_p, int(seed_vertex), edges, x_t, variant=variant,
+                                       max_iters=cfg.max_cascade_iters)
+        return real_columns(out, len(x)), iters
 
 
 register_backend(SingleDeviceBackend())

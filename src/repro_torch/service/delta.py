@@ -1,6 +1,6 @@
 """Incremental repair of a resident index after a graph delta.
 
-Counterpart of the reference's ``service/delta.py`` (the per-bank repair).
+Counterpart of the reference's ``service/delta.py``, host residency.
 Edge insertions need no rebuild: registers form a max-merge lattice and new
 edges only grow each simulation's reachable sets, so the old fixpoint lies
 below the new one and monotone sweeps climb the rest of the way. Per bank,
@@ -16,12 +16,17 @@ when a pristine rebuild runs. Below it the entry is only marked stale, and
 Both fast paths need ``context_free_edges`` (``diffusion.models``): under
 lt any delta rebuilds.
 
-The reference also repairs only the plan shards a delta dirtied, on its
-``serial`` backend. The port does not have that repair yet (ROADMAP §1.3):
-a request for it raises ``NotImplementedError``.
+With a partition plan attached and a backend of the ``shard_repair``
+capability asked for (``"auto"`` picks ``serial`` when a plan is attached),
+the insertion repair runs on the plan-order matrix instead and sweeps only
+the plan shards the delta dirtied, widening only where changes spread
+(``partition.serial.repair_plan_shards``); its result is byte-equal to the
+per-bank repair's.
 
-Each call runs in a ``delta.apply`` span (the ``repair`` lane) and lands in
-the ``delta.*`` metrics (sweeps, seconds, rebuilds).
+Each call runs in a ``delta.apply`` span (the ``repair`` lane, annotated
+with the repair's backend), with the port's ``delta.new_graph``,
+``delta.edge_operands`` and (per-bank) ``delta.touched_edges`` spans
+inside, and lands in the ``delta.*`` metrics (sweeps, seconds, rebuilds).
 """
 from __future__ import annotations
 
@@ -57,6 +62,11 @@ class DeltaReport:
     # vertex shards of the entry's plan that the delta's endpoints land in
     # (empty without a plan)
     plan_shards_touched: tuple = ()
+    # with a shard_repair backend: the shards whose buckets were swept
+    # (plan_shards_touched for a localized delta; more only where the
+    # repair spread)
+    shards_swept: tuple = ()
+    repair_backend: str = "single"   # backend the insertion repair ran on
 
 
 def _touched_edges(new_g: Graph, delta: GraphDelta, ep) -> Optional[tuple]:
@@ -72,16 +82,20 @@ def _touched_edges(new_g: Graph, delta: GraphDelta, ep) -> Optional[tuple]:
             ep.thr[:r][hit])
 
 
-def _wants_shard_repair(backend, entry: StoreEntry, plan_shards: tuple) -> bool:
-    """Whether the reference would repair only the dirtied plan shards: a
-    plan attached, shards touched, and ``backend`` "auto" or the ring's."""
-    if backend is None or entry.plan is None or not plan_shards:
-        return False
-    if backend == "auto":
-        return True
+def _shard_repair_backend(backend, entry: StoreEntry):
+    """The backend of the shard-restricted repair, or None for the per-bank
+    one. ``"auto"`` takes ``serial`` when a plan is attached; ``None`` and a
+    backend without ``shard_repair`` take the per-bank repair. (The
+    reference's device-resident routing waits for the port's multi-GPU
+    slice: every entry here is host resident.)"""
     from repro_torch.runtime import get_backend
 
-    return get_backend(backend).name == "serial"
+    if backend == "auto":
+        return get_backend("serial") if entry.plan is not None else None
+    if backend is None:
+        return None
+    b = get_backend(backend) if isinstance(backend, str) else backend
+    return b if b.capabilities().shard_repair else None
 
 
 def apply_delta(store: SketchStore, key: StoreKey, delta: GraphDelta, *,
@@ -94,15 +108,17 @@ def apply_delta(store: SketchStore, key: StoreKey, delta: GraphDelta, *,
     is the removed-edge fraction past which removals rebuild at once; it is
     not ``DiFuserConfig.rebuild_threshold``, Alg. 4's per-round epsilon.
 
-    ``backend``: ``None`` or the name of a backend without shard repair
-    runs the per-bank repair. Where the reference would repair shard by shard
-    (``"auto"`` or ``"serial"``, with a plan attached and shards touched),
-    this raises ``NotImplementedError`` before anything changes.
+    ``backend`` (a name or a ``Backend``): with a plan attached, shards
+    touched and a backend of the ``shard_repair`` capability, the insertion
+    repair sweeps only the dirtied plan shards; ``"auto"`` picks ``serial``
+    when a plan is attached. ``None`` and the other backends run the
+    per-bank repair. Either way the matrix ends byte-equal to a rebuild.
     """
     with trace.span("delta.apply", phase="repair", timed=True, added=delta.num_added,
                     removals=delta.num_removed) as sp:
         rep = _apply(store, key, delta, staleness_threshold, backend)
-        sp.annotate(rebuilt=rep.rebuilt, sweeps=rep.repair_sweeps, backend="single")
+        sp.annotate(rebuilt=rep.rebuilt, sweeps=rep.repair_sweeps,
+                    backend=rep.repair_backend)
     rep.time_s = sp.duration_s
     metrics.histogram("delta.repair_sweeps").observe(rep.repair_sweeps)
     metrics.histogram("delta.apply_s", unit="s").observe(rep.time_s)
@@ -132,37 +148,59 @@ def _apply(store: SketchStore, key: StoreKey, delta: GraphDelta,
         if touched_v.size:
             plan_shards = tuple(np.unique(entry.plan.owner_of(touched_v)).tolist())
     context_free = resolve_model(entry.cfg.model).context_free_edges
-    staleness = entry.staleness_frac + removed / max(m_before, 1)
-    rebuilds = bool(removed) and (not context_free or staleness > staleness_threshold)
-    if (delta.num_added and not rebuilds and context_free
-            and _wants_shard_repair(backend, entry, plan_shards)):
-        raise NotImplementedError(
-            "the shard-restricted insertion repair (the reference's serial "
-            "repair_plan_shards) is not ported yet (ROADMAP §1.3); pass "
-            "backend=None for the per-bank repair")
 
-    new_g = g.apply_delta(delta).sorted_by_dst()
+    with trace.span("delta.new_graph", phase="repair"):
+        new_g = g.apply_delta(delta).sorted_by_dst()
     entry.graph = new_g
     entry.version += 1
     rebuilt = False
     repair_sweeps = banks_touched = 0
+    shards_swept: tuple = ()
+    repair_backend = "single"
     if removed:
-        entry.staleness_frac = staleness
-        if rebuilds:
+        entry.staleness_frac += removed / max(m_before, 1)
+        if not context_free or entry.staleness_frac > staleness_threshold:
             store.rebuild(key)      # clears the staleness, bumps the version
             rebuilt = True
         else:
             entry.stale = True
     if delta.num_added and not rebuilt:
         if context_free:
-            repair_sweeps, banks_touched = _repair_insertions(entry, new_g, delta)
+            shard_backend = _shard_repair_backend(backend, entry)
+            if shard_backend is not None and entry.plan is not None and plan_shards:
+                repair_sweeps, banks_touched, shards_swept = _repair_insertions_sharded(
+                    entry, new_g, plan_shards, shard_backend)
+                repair_backend = shard_backend.name
+            else:
+                repair_sweeps, banks_touched = _repair_insertions(entry, new_g, delta)
         else:
             store.rebuild(key)
             rebuilt = True
     return DeltaReport(added=delta.num_added, removed=removed, rebuilt=rebuilt,
                        stale=entry.stale, staleness_frac=entry.staleness_frac,
                        repair_sweeps=repair_sweeps, banks_touched=banks_touched,
-                       time_s=0.0, plan_shards_touched=plan_shards)
+                       time_s=0.0, plan_shards_touched=plan_shards,
+                       shards_swept=shards_swept, repair_backend=repair_backend)
+
+
+def _repair_insertions_sharded(entry: StoreEntry, new_g: Graph, touched: tuple, backend):
+    """The shard-restricted monotone insertion repair through a
+    ``shard_repair`` backend: the plan-order matrix is repaired from the
+    shards the delta dirtied, sweeps widening only where changes spread.
+    Returns (sweeps, banks touched, shards swept)."""
+    from repro_torch.runtime.spec import RunSpec
+
+    spec = RunSpec.from_config(entry.cfg)
+    planned_new, sweeps, swept = backend.repair_plan_shards(
+        new_g, spec, entry.x, entry.planned_matrix(), entry.plan, touched)
+    old_banks = list(entry.banks)
+    entry.set_planned_matrix(planned_new)
+    banks_touched = sum(1 for b_old, b_new in zip(old_banks, entry.banks)
+                        if not torch.equal(b_old, b_new))
+    # the serving cache gets the new graph's operands (the version moved)
+    with trace.span("delta.edge_operands", phase="repair") as sp:
+        sp.sync(entry.prime_edges_cache())
+    return sweeps, banks_touched, swept
 
 
 def _repair_insertions(entry: StoreEntry, new_g: Graph, delta: GraphDelta):
@@ -171,12 +209,14 @@ def _repair_insertions(entry: StoreEntry, new_g: Graph, delta: GraphDelta):
     matrix stays a sound over-approximation."""
     cfg = entry.cfg
     model = resolve_model(cfg.model)
-    ep = model.edge_params(new_g, seed=cfg.seed)
-    touched = _touched_edges(new_g, delta, ep)
     dev = entry.device
-    # the serving cache gets the new graph's operands (the version moved)
-    full = entry.prime_edges_cache(EdgeOperands.from_numpy(
-        new_g.src, new_g.dst, ep.h, ep.lo, ep.thr, new_g.n_pad, dev))
+    with trace.span("delta.edge_operands", phase="repair") as sp:
+        ep = model.edge_params(new_g, seed=cfg.seed)
+        # the serving cache gets the new graph's operands (the version moved)
+        full = sp.sync(entry.prime_edges_cache(EdgeOperands.from_numpy(
+            new_g.src, new_g.dst, ep.h, ep.lo, ep.thr, new_g.n_pad, dev)))
+    with trace.span("delta.touched_edges", phase="repair"):
+        touched = _touched_edges(new_g, delta, ep)
     if touched is None:
         return 0, 0
     probe_edges = EdgeOperands.from_numpy(*touched, new_g.n_pad, dev)

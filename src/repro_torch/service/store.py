@@ -36,7 +36,9 @@ is needed, and the sweep does not write it) and rebinds the clone's own
 ``banks`` list; ``rebuild`` builds fresh banks; ``set_matrix`` splits a
 matrix the caller made; the serial ring's in-place merges
 (``bucket_propagate``/``bucket_cascade``) write only the ring state that its
-build allocated. ``tests/test_torch_async_service.py`` holds version N's
+build or its repair allocated (the shard repair copies ``planned_matrix()``
+into its own grid, and ``set_planned_matrix`` gathers new banks from the
+repair's output). ``tests/test_torch_async_service.py`` holds version N's
 bank bytes across a shadow's delta, rebuild and ``set_matrix``.
 """
 from __future__ import annotations
@@ -201,6 +203,15 @@ class StoreEntry:
     def set_matrix(self, m: torch.Tensor) -> None:
         """Replace the matrix (canonical row order), keeping the bank split."""
         self.install_canonical_banks(_split_banks(m, self.num_banks))
+
+    def set_planned_matrix(self, pm: torch.Tensor) -> None:
+        """Replace the matrix from a plan-order one (the shard repair's
+        output), un-permuted to canonical row order; bumps ``version``. The
+        plan-order cache becomes ``pm`` itself for the new version, so the
+        next ``planned_matrix`` does not permute it back."""
+        perm = torch.from_numpy(self.plan.perm[:self.graph.n_pad].astype(np.int64))
+        self.set_matrix(pm.index_select(0, perm.to(pm.device)))
+        self._planned_cache = (self.version, pm)
 
     def install_canonical_banks(self, banks: list) -> None:
         """Adopt freshly built banks (the rebuild path); bumps ``version``."""

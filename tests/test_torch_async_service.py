@@ -536,8 +536,8 @@ def test_swap_drops_engine_topk_memo(graphs):
 
 def test_failed_bucket_and_failed_mutation_land_on_their_futures(graphs, monkeypatch):
     """A failing batch fails its bucket's futures (others are answered); a
-    mutation that reaches the unported shard-restricted repair fails its
-    future with NotImplementedError, and the entry stays as it was."""
+    mutation whose shard-restricted repair fails (a CUDA error) fails its
+    future with that error, and the entry stays as it was."""
     g1, _, cfg = graphs
 
     def broken(*a, **kw):
@@ -556,8 +556,14 @@ def test_failed_bucket_and_failed_mutation_land_on_their_futures(graphs, monkeyp
         entry = aeng.store.entry(key)
         aeng.store.attach_plan(key, plan_partition(entry.graph, 2, mu_s=1, x=entry.x,
                                                    device="cpu"))
+        from repro_torch.partition import serial as T_serial
+
+        def broken_repair(*a, **kw):
+            raise RuntimeError("CUDA kernel bucket_propagate failed to launch: cudaError 700")
+
+        monkeypatch.setattr(T_serial, "repair_plan_shards", broken_repair)
         fut = aeng.apply_delta_async(key, GraphDelta.make(add=([1], [2])), backend="auto")
-        assert isinstance(fut.exception(WAIT), NotImplementedError)
+        assert isinstance(fut.exception(WAIT), RuntimeError)
         aeng.drain(WAIT)
         assert aeng.store.entry(key) is entry and entry.version == 0
 

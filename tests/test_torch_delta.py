@@ -2,8 +2,9 @@
 reference's ``apply_delta``, on the CPU: the insertion repair byte-equal to
 a pristine rebuild and to the reference's repair, with the same sweeps and
 banks touched; removal staleness and its lazy rebuild; the threshold
-rebuild; lt always rebuilding; the top-k memo dropped by a delta; and a
-request for the shard-restricted repair refused."""
+rebuild; lt always rebuilding; the top-k memo dropped by a delta; and the
+plan shards a delta touches. The shard-restricted repair has its own file,
+``test_torch_shard_repair.py``."""
 import numpy as np
 import pytest
 import torch
@@ -161,19 +162,3 @@ def test_plan_shards_touched_match_reference():
     assert got.plan_shards_touched
     assert _bytes(t_store.entry(tk).planned_matrix()) == _bytes(
         r_store.entry(rk).planned_matrix())
-
-
-@pytest.mark.parametrize("backend", ["auto", "serial"])
-def test_shard_repair_request_raises(backend):
-    _, _, _, tg, t_store, tk = _setup(scale=8)
-    entry = t_store.entry(tk)
-    t_store.attach_plan(tk, t_plan(entry.graph, 2, seed=1))
-    before, graph = _bytes(entry.matrix), entry.graph
-    delta = GraphDelta.make(add=_insertions(tg.n, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_delta(t_store, tk, delta, backend=backend)
-    assert entry.version == 0 and entry.graph is graph and _bytes(entry.matrix) == before
-    # the per-bank repair still runs on request, and without a plan "auto" is it
-    assert not apply_delta(t_store, tk, delta, backend="single").rebuilt
-    entry.plan = None
-    apply_delta(t_store, tk, delta, backend="auto")

@@ -38,6 +38,14 @@ def test_source_imports_neither_jax_nor_repro(path):
     assert not found, f"{path} imports {found}"
 
 
+def test_walk_covers_the_host_modules():
+    """The source scan above covers the presets, the utilities, the shard
+    profiles and the supervisor."""
+    files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"configs/__init__.py", "configs/difuser_workloads.py", "utils/__init__.py",
+            "utils/roofline.py", "obs/shardprof.py", "launch/ft.py"} <= files
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -56,13 +64,14 @@ def _graph():
                                    "store_get_or_build", "engine", "session_find_seeds",
                                    "session_apply_delta", "launcher_validate",
                                    "serve_launcher", "async_engine", "engine_own_store",
-                                   "serve_launcher_async"])
+                                   "serve_launcher_async", "serial_fixpoint_hook",
+                                   "launcher_trace"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     from repro_torch import partition
     from repro_torch.core import difuser
     from repro_torch.graphs import GraphDelta
     from repro_torch.launch import im, serve_im
-    from repro_torch.runtime import InfluenceSession, RunSpec, run
+    from repro_torch.runtime import InfluenceSession, RunSpec, get_backend, run
     from repro_torch.service import AsyncInfluenceEngine, InfluenceEngine, SketchStore
 
     g = _graph()
@@ -97,6 +106,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
         "engine_own_store": lambda: InfluenceEngine(),
         "serve_launcher_async": lambda: serve_im.run(["--graph", "rmat:6", "--registers",
                                                       "32", "--queries", "4", "--async"]),
+        "serial_fixpoint_hook": lambda: get_backend("serial").fixpoint(
+            np.zeros((g.n_pad, 32), np.int8), g.sorted_by_dst(),
+            RunSpec(num_registers=32, mu_v=2), np.arange(32, dtype=np.uint32)),
+        "launcher_trace": lambda: im.run(["--graph", "rmat:6", "--k", "2", "--registers",
+                                          "32", "--trace", os.devnull]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

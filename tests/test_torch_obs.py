@@ -2,7 +2,9 @@
 reference's (``repro.obs``) on the same inputs: histogram percentiles, JSONL
 snapshots read across the packages, the SLO watchdog's breach sequence,
 span nesting and the Chrome-trace schema, the flight ring's bound and dump,
-and the torch sync adapter that replaces ``jax.block_until_ready``."""
+the torch sync adapter that replaces ``jax.block_until_ready``, and the
+serial ring's measured shard profiles (``obs.shardprof``) and their
+predicted-vs-measured gauges."""
 import dataclasses
 import json
 
@@ -10,12 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import difuser as R_difuser
+from repro.graphs import rmat_graph as ref_rmat
 from repro.obs import flight as R_flight
 from repro.obs import metrics as R_metrics
+from repro.obs import shardprof as R_shardprof
 from repro.obs import slo as R_slo
 from repro.obs import trace as R_trace
 from repro_torch.obs import flight as T_flight
 from repro_torch.obs import metrics as T_metrics
+from repro_torch.obs import shardprof as T_shardprof
 from repro_torch.obs import slo as T_slo
 from repro_torch.obs import trace as T_trace
 
@@ -247,3 +253,110 @@ def test_sync_adapter_does_not_swallow_a_cuda_error(monkeypatch):
     finally:
         T_trace.remove_span_listener(seen.append)
     assert [s.name for s in seen] == ["kernel"]      # the span still closed
+
+
+# -- the serial ring's measured shard profiles --------------------------------------------
+
+@pytest.fixture
+def shard_profiling():
+    """Profile capture on in both packages, each ring cleared, the switches
+    restored afterwards."""
+    saved = T_shardprof.enabled(), R_shardprof.enabled()
+    for mod in (T_shardprof, R_shardprof):
+        mod.clear()
+        mod.set_enabled(True)
+    try:
+        yield
+    finally:
+        for mod, flag in zip((T_shardprof, R_shardprof), saved):
+            mod.set_enabled(flag)
+            mod.clear()
+
+
+def _skewed_pair():
+    kw = dict(edge_factor=8, a=0.65, b=0.15, c=0.15, seed=3, setting="w1")
+    from repro_torch.graphs import rmat_graph as port_rmat
+
+    return ref_rmat(8, **kw), port_rmat(8, **kw)
+
+
+def _serial_profiles(strategy):
+    """The port's and the reference's build profile of one serial run
+    (4 x 1 grid, J = 64, K = 2)."""
+    from repro.partition.serial import _find_seeds_ring_serial
+    from repro_torch.core.difuser import DiFuserConfig
+    from repro_torch.partition import find_seeds_ring_serial
+
+    rg, tg = _skewed_pair()
+    res, _ = find_seeds_ring_serial(tg, 2, DiFuserConfig(num_registers=64, seed=0), mu_v=4,
+                                    mu_s=1, strategy=strategy, device="cpu")
+    r_res, _ = _find_seeds_ring_serial(rg, 2, R_difuser.DiFuserConfig(num_registers=64, seed=0),
+                                       mu_v=4, mu_s=1, strategy=strategy)
+    np.testing.assert_array_equal(res.seeds, r_res.seeds)
+    prof, r_prof = T_shardprof.last_profile(), R_shardprof.last_profile()
+    assert prof is not None and r_prof is not None
+    return res, prof, r_prof
+
+
+def test_measured_profile_degree_beats_block_on_skewed_rmat(shard_profiling):
+    res_blk, blk, r_blk = _serial_profiles("block")
+    res_deg, deg, r_deg = _serial_profiles("degree")
+    assert np.array_equal(res_blk.seeds, res_deg.seeds)
+    # the bytes and sweeps are the reference's exactly (same buckets, same sweeps)
+    for got, want in ((blk, r_blk), (deg, r_deg)):
+        np.testing.assert_array_equal(got.step_bytes, want.step_bytes)
+        assert (got.sweeps, got.phase, got.backend, got.strategy) == (
+            want.sweeps, want.phase, want.backend, want.strategy)
+    # the measured byte skew separates the planners
+    assert blk.bytes_imbalance() > 1.2
+    assert deg.bytes_imbalance() < blk.bytes_imbalance() * 0.8
+    # each bucket merge is timed (the host clock on the CPU)
+    assert blk.per_step_timed and deg.per_step_timed
+    assert blk.phase == "fixpoint" and blk.backend == "serial"
+    assert blk.step_seconds.shape == (4, 4)
+    assert float(blk.step_seconds.sum()) > 0.0 and int(blk.step_bytes.sum()) > 0
+    table = blk.skew_table()
+    assert "bytes_imb" in table
+    assert sum(line.lstrip().startswith(tuple("0123")) for line in table.splitlines()) == 4
+    assert blk.summary()["shard_bytes"] == r_blk.summary()["shard_bytes"]
+
+
+def test_predicted_vs_measured_gauges_published(shard_profiling):
+    _serial_profiles("block")
+    snap = {(rec["name"], tuple(sorted(rec.get("tags", {}).items())))
+            for rec in T_metrics.registry().snapshot()}
+    labels = (("backend", "serial"), ("strategy", "block"))
+    for name in ("partition.measured_edge_imb", "partition.measured_time_imb",
+                 "partition.achieved_gbps", "partition.predicted_vs_measured_edge_imb",
+                 "partition.predicted_vs_measured_bucket_imb"):
+        assert (name, labels) in snap, f"missing gauge {name}"
+    ratio = T_metrics.registry().gauge("partition.predicted_vs_measured_edge_imb",
+                                       backend="serial", strategy="block").value
+    r_ratio = R_metrics.registry().gauge("partition.predicted_vs_measured_edge_imb",
+                                         backend="serial", strategy="block").value
+    # measured bytes follow the planner's per-edge counts: the ratio is ~1,
+    # and the reference's to float rounding
+    assert ratio == pytest.approx(1.0, rel=0.05)
+    assert ratio == pytest.approx(r_ratio, rel=1e-12)
+
+
+def test_profile_ring_is_bounded(shard_profiling):
+    for _ in range(80):
+        prof = T_shardprof.ShardProfiler(2, 1, backend="serial", phase="build")
+        prof.record(0, 0, 0.001, 100)
+        T_shardprof.publish(prof.finish(wall_s=0.01))
+    assert len(T_shardprof.profiles()) == 64
+    assert T_shardprof.bucket_bytes(3, 16) == R_shardprof.bucket_bytes(3, 16)
+
+
+def test_profile_capture_off_records_nothing(shard_profiling):
+    """With capture off the ring state gets no profiler, so no merge is timed."""
+    T_shardprof.set_enabled(False)
+    from repro_torch.core.difuser import DiFuserConfig
+    from repro_torch.partition import build_matrix_ring_serial
+
+    _, tg = _skewed_pair()
+    cfg = DiFuserConfig(num_registers=64, seed=0)
+    g = tg.sorted_by_dst()
+    build_matrix_ring_serial(g, cfg, mu_v=4, device="cpu")
+    assert T_shardprof.last_profile() is None

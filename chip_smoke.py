@@ -5,13 +5,16 @@
     python3 chip_smoke.py --phases 1,2    # build and kernel checks only
     python3 chip_smoke.py --phases 1,6,7  # the serving phases (7 needs 6)
     python3 chip_smoke.py --phases 1,6,8  # the shard repair and spans (8 needs 6)
+    python3 chip_smoke.py --phases 1,4,4b,9  # tuning and the report (9 needs 4, 4b)
 
 Phases (each raises on failure; none is caught):
 
 1. device: the card's name and power limit (``nvidia-smi``); build the
-   seven CUDA sources from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   each, in parallel) and print what ``ptxas`` reports for each kernel
-   instance (registers, spills);
+   seven CUDA sources from ``src/repro_torch/kernels/csrc``, and the two
+   single-path sweeps again at each other block shape of
+   ``build.ITEM_WARPS`` (``-DREPRO_ITEM_WARPS``; one ``nvcc`` each, all in
+   parallel), and print what ``ptxas`` reports for each kernel instance
+   (registers, spills);
 2. each kernel against its plain PyTorch version on the card, on several
    shapes (both predicate forms, ``reg_offset != 0``, VISITED rows, a prime
    edge count, register counts that are not multiples of 32; for the sweeps
@@ -87,7 +90,22 @@ Phases (each raises on failure; none is caught):
    coverage, lanes, the top spans, the measured shard profile and its
    ``partition.predicted_vs_measured_edge_imb`` gauge. Each repair runs with
    the span recorder on, its merges timed by CUDA events; its launches, with
-   the hooks' and the warm top-k's, are ``launches_repair``.
+   the hooks' and the warm top-k's, are ``launches_repair``;
+9. tuning and the report, at phase 4's size (needs 4 and 4b; 6-8 feed the
+   report): (a) ``tune.autotune`` of the single backend into a cache under
+   a temporary directory: each ``sketch_propagate`` and ``cascade_step``
+   work-item geometry (``item_edges`` x ``item_warps``) timed, printed with
+   its GB/s and share of the roof, and its output held byte-equal to the
+   default geometry's and the plain version's; (b) the ``serial`` families
+   (``bucket_propagate``'s schedule, ``fused_sweep``) at phase 4b's spec;
+   (c) phase 4's launcher with ``--tuning cached`` and phase 4b's spec with
+   ``tuning="cached"`` from that cache: seeds, scores, rebuilds and cascade
+   sweeps equal phases 4 and 4b's (the single path's build and rebuild
+   sweeps too; the ring's equal an untuned run at the tuned schedule, since
+   comm-free sweeps stand in for ring sweeps); (d) ``obs.report`` of this
+   run's records (phases 4, 4b, 6 and 7, phase 8 (d)'s spans, the metrics,
+   the shard profiles, the cache), every section present. Launches of
+   (a)-(c) are ``launches_tune``.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
@@ -102,7 +120,8 @@ the new index equal to a cold build); and ``repro_torch.launch.im
 
 It prints the ``kernels`` JSON line (``launches`` counts phase 4's or 4b's
 run, ``launches_serve`` phase 6's, ``launches_async`` phase 7's
-launcher and async engines, ``launches_repair`` phase 8's repairs), the
+launcher and async engines, ``launches_repair`` phase 8's repairs,
+``launches_tune`` phase 9's tuning and tuned runs), the
 ``nvidia-smi`` line, and last the contract line ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository around it, it
 exits non-zero before printing any. Longer output goes to
@@ -235,6 +254,9 @@ def phase_build():
             log(f"    {name}: {inst}: {regs} registers, {spill} bytes spilled")
     for name in build.KERNELS:
         build.load(name)
+    for name in build.VARIANT_KERNELS:
+        for warps in build.ITEM_WARPS:
+            build.load(name, warps)
 
 
 def full_graph():
@@ -320,10 +342,25 @@ def _check_sweeps(m, edges, x, what) -> None:
             check(bool(fa.item()) == bool(fb.item()), (cuda_fn.__name__, what, "changed"))
 
 
+# phase 2's work-list item sizes of the sweeps (one-edge items, the tuner's
+# smallest and largest), each at every block shape the sweeps are built at
+ITEM_SIZES = (1, 64, 1024)
+
+
+def _regeometry(edges, item_edges, item_warps):
+    """``edges`` with both work lists recut at ``(item_edges, item_warps)``."""
+    import dataclasses
+
+    from repro_torch.kernels.edges import with_work
+
+    return dataclasses.replace(edges, by_src=with_work(edges.by_src, item_edges, item_warps),
+                               by_dst=with_work(edges.by_dst, item_edges, item_warps))
+
+
 def phase_kernels():
     import torch
 
-    from repro_torch.kernels import sketch_cardinality, sketch_fill
+    from repro_torch.kernels import build, sketch_cardinality, sketch_fill
 
     cases = [  # (n_pad, J, E): prime E, J off multiples of 32
         (1024, 256, 10007), (2048, 1024, 30011), (520, 100, 4099),
@@ -348,6 +385,11 @@ def phase_kernels():
         log(f"[2] hub rows J={num_regs} E={edges.num_edges} (work items, split rows, "
             f"partials: by source {work[0]}, by destination {work[1]}): both sweeps equal "
             f"their plain versions (both predicates)")
+        geometries = [(e, w) for e in ITEM_SIZES for w in build.ITEM_WARPS]
+        for geometry in geometries:
+            _check_sweeps(m, _regeometry(edges, *geometry), x, ("hub", num_regs, geometry))
+        log(f"[2] hub rows J={num_regs}: both sweeps equal their plain versions at every "
+            f"(item_edges, item_warps) of {geometries}")
     m, _, _ = _random_case(64, 37, 101, seed=99, device="cuda")
     try:
         sketch_fill.sketch_fill_cuda(m)
@@ -943,7 +985,7 @@ def phase_full_serial(k: int, single_seeds) -> dict:
         log("[4b] serial seeds equal the single backend's (phase 4)")
     return dict(launches=launches, peak_bytes=peak, wall_s=wall, partition=part,
                 seeds=seeds.tolist(), score=float(res.scores[-1]),
-                propagate_iters=res.propagate_iters, **st)
+                rebuilds=int(res.rebuilds.sum()), propagate_iters=res.propagate_iters, **st)
 
 
 # --------------------------------------------------------------- phase 5 ----
@@ -1431,6 +1473,7 @@ def _serve_host_split(entry, delta) -> dict:
 
 
 _SERVE: dict = {}   # phase 6's built and repaired matrices and its delta, for phase 7
+_TRACED: list = []  # phase 8 (d)'s span events, for phase 9's report
 
 
 @contextlib.contextmanager
@@ -1462,7 +1505,7 @@ def _counted(into, what):
     counters.reset()
     yield
     launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
-    check(not plain, f"plain versions ran on the async path ({what}): {plain}")
+    check(not plain, f"plain versions ran in {what}: {plain}")
     into.update(launches)
 
 
@@ -1644,6 +1687,7 @@ def phase_async() -> dict:
         f"{time.perf_counter() - t_phase:.1f}s")
     missing = [n for n in SINGLE_KERNELS if engines.get(n, 0) <= 0]
     check(not missing, f"kernels not launched by the async engines: {missing}")
+    _SERVE["admission"] = adm      # phase 9's report
     return dict(launches=dict(launcher + engines), launcher_launches=dict(launcher),
                 engine_launches=dict(engines), qps=out["qps"], e2e_p50_ms=adm["e2e_p50_ms"],
                 e2e_p99_ms=adm["e2e_p99_ms"], miss_rate=adm["deadline_miss_rate"],
@@ -1900,6 +1944,7 @@ def phase_shard_repair(full, serial, k: int) -> dict:
                             seeds=rep.result.seeds.tolist(), events=rec.events())
     check(traced["single"]["seeds"] == traced["serial"]["seeds"],
           "8d: traced single and serial seeds differ")
+    _TRACED.extend(traced["single"]["events"] + traced["serial"]["events"])  # phase 9
     for name, ref in (("single", full), ("serial", serial)):
         t = traced[name]
         evs = t["events"]
@@ -1940,9 +1985,190 @@ def phase_shard_repair(full, serial, k: int) -> dict:
 
 
 
+# --------------------------------------------------------------- phase 9 ----
+
+#: the section headings of the HTML report (obs.report)
+REPORT_SECTIONS = ("Runtime backends", "Phase breakdown", "Shard skew — measured",
+                   "Admission", "Kernel tuning", "SLO")
+
+
+def _tune_lines(tag: str, records: dict) -> None:
+    """Each candidate's time, GB/s and share of the memory roof, then the
+    family's default against its winner."""
+    for family, rec in records.items():
+        for c in rec["candidates"]:
+            log(f"[{tag}] {family} {c['label']}: {c['us']:.1f} us, {c['gbps']:.1f} GB/s, "
+                f"{c['gbps'] * 1e9 / MEM_BYTES_PER_S * 100:.1f}% of the roof")
+        best = min(rec["candidates"], key=lambda c: c["us"])
+        log(f"[{tag}] {family}: default {rec['candidates'][0]['label']} "
+            f"{rec['default_us']:.1f} us, winner {best['label']} {rec['tuned_us']:.1f} us "
+            f"({rec['tuned_gbps']:.1f} GB/s, {rec['frac_of_roof'] * 100:.1f}% of the roof), "
+            f"speedup {rec['speedup']:.4f}")
+
+
+def phase_tuning(full: dict, serial: dict, serve, smi: str, k: int) -> dict:
+    """Measured tuning and the HTML report at phase 4's size: (a) the single
+    path's sweep families, every candidate's output held byte-equal to the
+    default geometry's and to the plain version's; (b) the serial ring's
+    families at phase 4b's spec; (c) phases 4 and 4b again from that cache
+    (``--tuning cached``), their results equal; (d) the report of this
+    run's records. Launches of (a)-(c) are ``launches_tune``; the
+    comparisons run outside the count."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.kernels import cascade_step, sketch_propagate
+    from repro_torch.launch import im
+    from repro_torch.obs import metrics, shardprof
+    from repro_torch.obs.report import write_report
+    from repro_torch.runtime import RunSpec, run
+    from repro_torch.tune import (CACHE_ENV, KernelConfig, TuningCache, autotune,
+                                  reset_default_cache)
+    from repro_torch.tune.autotuner import sweep_call, sweep_operands
+
+    check(full is not None and serial is not None,
+          "phase 9 replays phases 4 and 4b: run them first")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    launches = Counter()
+    tmp = tempfile.mkdtemp(prefix="repro_tune_")   # never the working directory
+    cache_path = os.path.join(tmp, "TUNE_cache.json")
+    cache = TuningCache(cache_path)
+    g = full_graph()
+
+    # (a) the single path's sweeps at every work-item geometry
+    single = RunSpec(num_registers=FULL["registers"], model=FULL["model"], backend="single")
+    t0 = time.perf_counter()
+    with _counted(launches, "9a autotune"):
+        rec_a = autotune(g, single, backend="single", cache=cache, device="cuda")
+    tune_a_s = time.perf_counter() - t0
+    _tune_lines("9a", rec_a)
+    for family, plain in (("sketch_propagate", sketch_propagate.propagate_sweep_plain),
+                          ("cascade_step", cascade_step.cascade_sweep_plain)):
+        op = sweep_operands(g, single, family, device="cuda")
+        default = sweep_call(op, family, KernelConfig())()
+        check(torch.equal(default, plain(op.m, op.edges, op.x, variant=op.variant)[0]),
+              f"9a: {family}'s default geometry differs from its plain version")
+        for c in rec_a[family]["candidates"]:
+            got = sweep_call(op, family, KernelConfig.from_dict(c["config"]))()
+            check(torch.equal(got, default), f"9a: {family} {c['label']} differs")
+            del got
+        log(f"[9a] {family}: the outputs of all {len(rec_a[family]['candidates'])} "
+            f"candidates equal the default geometry's and the plain version's byte for byte")
+        del op, default
+    log(f"[9a] autotune (single) {tune_a_s:.2f}s")
+
+    # (b) the serial ring's schedule and fused prologue at phase 4b's spec
+    ring = RunSpec(num_registers=FULL["registers"], model=FULL["model"], **SERIAL)
+    t0 = time.perf_counter()
+    with _counted(launches, "9b autotune"):
+        rec_b = autotune(g, ring, backend="serial", cache=cache, device="cuda")
+    tune_b_s = time.perf_counter() - t0
+    _tune_lines("9b", rec_b)
+    log(f"[9b] autotune (serial) {tune_b_s:.2f}s; cache {cache_path}: {len(cache)} entries")
+
+    # (c) phases 4 and 4b from the cache
+    os.environ[CACHE_ENV] = cache_path
+    reset_default_cache()
+    try:
+        argv = ["--graph", FULL["graph"], "--setting", FULL["setting"], "--model",
+                FULL["model"], "--registers", str(FULL["registers"]), "--k", str(k),
+                "--tuning", "cached"]
+        with _reuse_full_graph(im), _counted(launches, "9c im --tuning cached"):
+            out = im.run(argv)
+        for key in ("seeds", "difuser_score", "rebuilds", "propagate_iters",
+                    "cascade_sweeps", "rebuild_sweeps"):
+            check(out[key] == full[key], f"9c: the tuned single run's {key} differs from "
+                                         f"phase 4's")
+        log(f"[9c] im --tuning cached: {out['time_s']:.2f}s (phase 4 untuned "
+            f"{full['time_s']:.2f}s; prep {out['prep_s']:.3f}s against "
+            f"{full['prep_s']:.3f}s, build {out['build_s']:.3f}s against "
+            f"{full['build_s']:.3f}s, rounds {out['rounds_s']:.3f}s against "
+            f"{full['rounds_s']:.3f}s); seeds, score, rebuilds and sweeps equal phase 4's")
+        t0 = time.perf_counter()
+        with _counted(launches, "9c serial tuning=cached"):
+            rep = run(g, k, ring.with_(tuning="cached"), device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ[CACHE_ENV]
+        reset_default_cache()
+    res, st = rep.result, rep.result.stats
+    knobs = {f: getattr(rep.spec, f)
+             for f in ("local_sweeps", "pad_mode", "fuse_sweeps", "lane_fill")}
+    check(res.seeds.tolist() == list(serial["seeds"]), "9c: tuned serial seeds differ")
+    check(float(res.scores[-1]) == serial["score"], "9c: tuned serial score differs")
+    check(int(res.rebuilds.sum()) == serial["rebuilds"], "9c: tuned serial rebuilds differ")
+    check(st["cascade_sweeps"] == serial["cascade_sweeps"],
+          "9c: tuned serial cascade sweeps differ")
+    # ring sweeps to the fixpoint depend on the comm-free sweeps before each:
+    # held against phase 4b's where the schedule is 4b's, else against an
+    # untuned run at the tuned knobs
+    if (knobs["local_sweeps"], knobs["pad_mode"]) == (SERIAL["local_sweeps"], "step"):
+        want, against = (serial["propagate_iters"], serial["rebuild_sweeps"]), "phase 4b's"
+    else:
+        ref = run(g, k, ring.with_(**knobs), device="cuda").result
+        check(ref.seeds.tolist() == list(serial["seeds"]), "9c: untuned serial seeds differ")
+        want = (ref.propagate_iters, ref.stats["rebuild_sweeps"])
+        against = f"an untuned run at {knobs}"
+    check((res.propagate_iters, st["rebuild_sweeps"]) == want,
+          f"9c: tuned serial sweeps {(res.propagate_iters, st['rebuild_sweeps'])} "
+          f"differ from {against}: {want}")
+    prep = ("sort_s", "sample_s", "plan_s", "buckets_s", "state_s")
+    log(f"[9c] serial tuning=cached {knobs}: {wall:.2f}s (phase 4b untuned "
+        f"{serial['wall_s']:.2f}s; host prep {sum(st[p] for p in prep):.3f}s against "
+        f"{sum(serial[p] for p in prep):.3f}s, build {st['build_s']:.3f}s against "
+        f"{serial['build_s']:.3f}s with {res.propagate_iters} ring sweeps against "
+        f"{serial['propagate_iters']}, rounds {st['rounds_s']:.3f}s against "
+        f"{serial['rounds_s']:.3f}s); seeds, score, rebuilds and cascade sweeps equal "
+        f"phase 4b's, build and rebuild sweeps equal {against}")
+
+    # (d) the report of this run's records
+    def backend_record(cold_s, warm_s, build_s, seeds):
+        return dict(available=True, cold_s=cold_s, seeds_per_s_cold=k / cold_s,
+                    warm_s=warm_s, seeds_per_s_warm=k / warm_s, store_build_s=build_s,
+                    seeds_identical=list(seeds) == list(full["seeds"]))
+
+    runtime = dict(graph=FULL["graph"], n=full["n"], m=full["m"], k=k, backends=dict(
+        single=backend_record(full["time_s"], full["rounds_s"], full["build_s"],
+                              full["seeds"]),
+        serial=backend_record(serial["wall_s"], serial["rounds_s"], serial["build_s"],
+                              serial["seeds"])))
+    service = None
+    if serve is not None:
+        service = dict(qps=serve["qps"], p50_ms=serve["p50_ms"], p99_ms=serve["p99_ms"],
+                       n=SERVE["queries"])
+        if "admission" in _SERVE:
+            service["async"] = _SERVE["admission"]
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = write_report(os.path.join(tmp, "report.html"),
+                        title="repro_torch perf report (chip_smoke.py)", runtime=runtime,
+                        service=service, events=_TRACED,
+                        metrics_rows=metrics.registry().snapshot(),
+                        profiles=shardprof.profiles(), tuning=cache.records(), generated=smi)
+    page = Path(path).read_text()
+    missing = [h for h in REPORT_SECTIONS if f"<h2>{h}</h2>" not in page]
+    check(not missing, f"9d: report sections missing: {missing}")
+    (OUT / "report.html").write_text(page)
+    log(f"[9d] report {path}: {len(page.encode())} bytes, sections {list(REPORT_SECTIONS)} "
+        f"(events {len(_TRACED)}, profiles {len(shardprof.profiles())}, tuning entries "
+        f"{len(cache)}); copied to {OUT / 'report.html'}")
+    shutil.rmtree(tmp)
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[9] launches {dict(launches)}; max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"phase {phase_s:.1f}s")
+    return dict(launches=dict(launches), single=rec_a, serial=rec_b, tune_single_s=tune_a_s,
+                tune_serial_s=tune_b_s, tuned_single_s=out["time_s"], tuned_serial_s=wall,
+                tuned_serial_knobs=knobs, report_bytes=len(page.encode()), peak_bytes=peak,
+                phase_s=phase_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1988,13 +2214,18 @@ def main(argv=None) -> int:
     if repair:
         for row in rows:   # and on the shard repair's path
             row["launches_repair"] = int(repair["launches"].get(row["name"], 0))
+    tuning = phase_tuning(full, serial, serve, smi, args.k) if "9" in phases else None
+    if tuning:
+        for row in rows:   # and on the tuning path
+            row["launches_tune"] = int(tuning["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
         serial_out = {k: v for k, v in (serial or {}).items() if k != "partition"}
         (OUT / "kernels.json").write_text(json.dumps(
             dict(rows=rows, full=full, serial=serial_out, serve=serve,
-                 served_async=served_async, repair=repair, smi=smi), indent=1, default=str))
+                 served_async=served_async, repair=repair, tuning=tuning, smi=smi), indent=1,
+            default=str))
         print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,9 @@ return is J wide.
 
 Entry points (``build_sketch_matrix``, ``find_seeds``, ``find_seeds_warm``)
 run on CUDA unless ``device="cpu"`` is passed; see ``repro_torch.device``.
+Where they lower the edges themselves, ``propagate`` and ``cascade`` are the
+two sweeps' work-list geometry (``kernels.edges.ItemGeometry``: edges an
+item, warps a block), which moves time and never a result.
 
 Spans (``obs.trace``; null and free while the recorder is off): the
 reference's ``single.find_seeds`` (build and rounds), ``single.build_matrix``
@@ -40,7 +43,7 @@ from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.diffusion.constants import DEFAULT_MODEL
 from repro_torch.graphs.structs import Graph
 from repro_torch.kernels import ops
-from repro_torch.kernels.edges import EdgeOperands
+from repro_torch.kernels.edges import DEFAULT_GEOMETRY, EdgeOperands, ItemGeometry
 from repro_torch.obs import trace
 from repro_torch.utils import roofline
 
@@ -88,12 +91,16 @@ def normalize_inputs(g: Graph, config: Optional[DiFuserConfig] = None,
     return g.sorted_by_dst(), normalize_x(cfg, x)
 
 
-def edge_operands(g: Graph, cfg: DiFuserConfig, device) -> EdgeOperands:
+def edge_operands(g: Graph, cfg: DiFuserConfig, device, *,
+                  propagate: ItemGeometry = DEFAULT_GEOMETRY,
+                  cascade: ItemGeometry = DEFAULT_GEOMETRY) -> EdgeOperands:
     """Lower ``cfg.model`` against ``g`` (already in serving order) to the
-    device operands of the sweeps."""
+    device operands of the sweeps, their work lists cut at the ``propagate``
+    and ``cascade`` geometry."""
     ep = resolve_model(cfg.model).edge_params(g, seed=cfg.seed)
     return EdgeOperands.from_numpy(g.src, g.dst, ep.h, ep.lo, ep.thr, g.n_pad,
-                                   resolve_device(device))
+                                   resolve_device(device), propagate=propagate,
+                                   cascade=cascade)
 
 
 def x_tensor(x: np.ndarray, device) -> torch.Tensor:
@@ -173,7 +180,9 @@ def _annotate_build(sp, iters: int, num_edges: int, num_regs: int) -> None:
 def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
                         x: Optional[np.ndarray] = None, *, reg_offset: int = 0,
                         init_matrix=None, normalized: bool = False,
-                        edges: Optional[EdgeOperands] = None, device=None):
+                        edges: Optional[EdgeOperands] = None, device=None,
+                        propagate: ItemGeometry = DEFAULT_GEOMETRY,
+                        cascade: ItemGeometry = DEFAULT_GEOMETRY):
     """Alg. 4 lines 3-6 once. Returns ``(matrix int8[n_pad, J] on the
     device, build_iters, x_used)``, J = len(x).
 
@@ -181,13 +190,14 @@ def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
     space fills slots from b * J). ``init_matrix`` (tensor or numpy) starts
     the fixpoint from an existing matrix instead of a fresh fill.
     ``normalized=True`` skips sorting when ``g`` and ``x`` already are.
-    ``edges``: operands from ``edge_operands`` for the normalized graph."""
+    ``edges``: operands from ``edge_operands`` for the normalized graph
+    (else they are lowered here at the ``propagate``/``cascade`` geometry)."""
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     if not normalized:
         g, x = normalize_inputs(g, cfg, x)
     if edges is None:
-        edges = edge_operands(g, cfg, dev)
+        edges = edge_operands(g, cfg, dev, propagate=propagate, cascade=cascade)
     variant = resolve_model(cfg.model).variant
     x_t = x_tensor(x, dev)
     with trace.span("single.build_matrix", phase="build", n=g.n, registers=int(x.shape[0]),
@@ -206,7 +216,9 @@ def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
 
 
 def find_seeds(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
-               x: Optional[np.ndarray] = None, *, device=None) -> InfluenceResult:
+               x: Optional[np.ndarray] = None, *, device=None,
+               propagate: ItemGeometry = DEFAULT_GEOMETRY,
+               cascade: ItemGeometry = DEFAULT_GEOMETRY) -> InfluenceResult:
     """Single-device Alg. 4: build, then K seed rounds. ``x`` overrides the
     random vector."""
     cfg = config or DiFuserConfig()
@@ -214,7 +226,7 @@ def find_seeds(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
     t_prep = time.perf_counter()
     with trace.span("single.prep", phase="plan", n=g.n, registers=cfg.num_registers) as sp:
         g, x = normalize_inputs(g, cfg, x)
-        edges = edge_operands(g, cfg, dev)
+        edges = edge_operands(g, cfg, dev, propagate=propagate, cascade=cascade)
         variant = resolve_model(cfg.model).variant
         x_t = x_tensor(x, dev)
         sp.sync(edges)

@@ -66,7 +66,7 @@ def _launch_merge(name: str, acc, block, rows: EdgeRows, x, variant: int,
     else:
         check_partial(partial, work, acc, block)
     changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.load(name)
+    fn = build.load(name, work.item_warps)
     build.check(name, fn(acc.data_ptr(), block.data_ptr(), partial.data_ptr(),
                          *item_operands(rows, x), work.num_items, work.num_split,
                          acc.shape[1], int(variant), changed.data_ptr(), stream(dev)))

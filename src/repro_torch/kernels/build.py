@@ -13,6 +13,14 @@ library is never loaded. Nothing is built when the package is imported:
 for each missing library, all at once. ``nvcc`` is ``$CUDA_HOME/bin/nvcc``
 or the one on ``PATH``; without it, or when a build fails, these raise.
 
+Block shapes: the single path's work-item sweeps (``VARIANT_KERNELS``) are
+also built at the other block shapes of ``ITEM_WARPS``, each into a library
+of its own, ``<source>-w<warps>-<hash>.so``, compiled with
+``-DREPRO_ITEM_WARPS=<warps>`` (the flag is in its hash). ``load(name,
+warps)`` takes the library of that shape; the default shape
+(``edges.ITEM_WARPS``) is the plain library, and a kernel without variants
+refuses any other shape.
+
 Threads: the async engine's serving and mutation threads may reach the same
 kernel first together. ``load`` holds one lock over its check, the build
 and the ``CDLL``, so a library is built and loaded once; every ``nvcc``
@@ -28,7 +36,9 @@ import subprocess
 import threading
 import uuid
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+from repro_torch.kernels.edges import ITEM_WARPS as DEFAULT_WARPS
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -55,8 +65,13 @@ SIGNATURES = {
 }
 KERNELS = tuple(SIGNATURES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
+#: the kernels built at every block shape of ``ITEM_WARPS`` (each its own source)
+VARIANT_KERNELS = ("sketch_propagate", "cascade_step")
+#: the block shapes (warps, and so work items, a block) of ``VARIANT_KERNELS``;
+#: ``ptxas -v`` reports no spill at any of them (``chip_smoke.py`` phase 1)
+ITEM_WARPS = (2, 4, 8)
 
-_LOADED: Dict[str, ctypes._CFuncPtr] = {}
+_LOADED: Dict[Tuple[str, int], ctypes._CFuncPtr] = {}
 _LOAD_LOCK = threading.Lock()
 
 
@@ -70,26 +85,58 @@ def nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
+def _variant_sources() -> Tuple[str, ...]:
+    return tuple(SIGNATURES[k][0] for k in VARIANT_KERNELS)
+
+
+def _flags(warps: int) -> Tuple[str, ...]:
+    return FLAGS if warps == DEFAULT_WARPS else (*FLAGS, f"-DREPRO_ITEM_WARPS={warps}")
+
+
+def library_path(source: str, warps: int = DEFAULT_WARPS) -> Path:
+    digest = hashlib.sha256(" ".join(_flags(warps)).encode())
     for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{source}.cu"):
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"{source}-{digest.hexdigest()[:16]}.so"
+    shape = "" if warps == DEFAULT_WARPS else f"-w{warps}"
+    return BUILD_DIR / f"{source}{shape}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every missing library of the sources ``names`` in parallel.
-    Returns the compiler's report (registers, spills) of each library built
-    now."""
+def _check_shape(source: str, warps: int) -> None:
+    if warps == DEFAULT_WARPS:
+        return
+    if source not in _variant_sources():
+        raise ValueError(f"{source} is built at {DEFAULT_WARPS} warps a block only")
+    if warps not in ITEM_WARPS:
+        raise ValueError(f"{source} is built at {ITEM_WARPS} warps a block, not {warps}")
+
+
+def _library(source: str, warps: int) -> Path:
+    return library_path(source) if warps == DEFAULT_WARPS else library_path(source, warps)
+
+
+def build(names: Iterable[str] = SOURCES,
+          warps: Iterable[int] = ITEM_WARPS) -> Dict[str, str]:
+    """Compile every missing library of the sources ``names`` in parallel:
+    each at the default block shape, and the sweeps' sources also at the
+    other shapes of ``warps``. Returns the compiler's report (registers,
+    spills) of each library built now, keyed by the source's name
+    (``<source>-w<warps>`` for another shape)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    targets = []
     for name in names:
-        lib = library_path(name)
+        for w in dict.fromkeys((DEFAULT_WARPS, *warps)):
+            if w == DEFAULT_WARPS or name in _variant_sources():
+                _check_shape(name, int(w))
+                targets.append((name, int(w)))
+    jobs = {}
+    for name, w in targets:
+        lib = _library(name, w)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.stem}.{uuid.uuid4().hex}.tmp.so")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (lib, tmp, subprocess.Popen(
+        cmd = [nvcc(), *_flags(w), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        label = name if w == DEFAULT_WARPS else f"{name}-w{w}"
+        jobs[label] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports, failed = {}, []
     for name, (lib, tmp, proc) in jobs.items():
@@ -104,19 +151,24 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return reports
 
 
-def load(name: str):
-    """The C entry point of kernel ``name``, built at first use."""
+def load(name: str, warps: int = DEFAULT_WARPS):
+    """The C entry point of kernel ``name`` at ``warps`` warps a block, built
+    at first use."""
+    warps = int(warps)
     with _LOAD_LOCK:
-        fn = _LOADED.get(name)
+        fn = _LOADED.get((name, warps))
         if fn is None:
             source, symbol, argtypes = SIGNATURES[name]
-            lib = library_path(source)
-            if not lib.exists():
+            _check_shape(source, warps)
+            lib = _library(source, warps)
+            if not lib.exists() and warps == DEFAULT_WARPS:
                 build([source])
+            elif not lib.exists():
+                build([source], warps=(warps,))
             fn = getattr(ctypes.CDLL(str(lib)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _LOADED[name] = fn
+            _LOADED[(name, warps)] = fn
         return fn
 
 

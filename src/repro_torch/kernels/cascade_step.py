@@ -3,8 +3,9 @@ edge (u, v) for register j and ``M[u, j]`` is VISITED, ``out[v, j] =
 VISITED``, starting from ``out = M``.
 
 ``cascade_sweep_cuda`` launches ``csrc/cascade_step.cu`` (one warp per
-work item of at most ``edges.CHUNK`` edges of a destination row, then a merge
-of the split rows' partials), which replaces the Pallas kernel
+work item of ``edges.by_dst.work``, at most its ``item_edges`` edges of a
+destination row, then a merge of the split rows' partials; the library built
+at the list's ``item_warps`` warps a block), which replaces the Pallas kernel
 ``src/repro/kernels/cascade_step.py`` (``cascade_sweep_pallas``).
 ``cascade_sweep_plain`` is its plain PyTorch version. Both return
 ``(out, changed)`` as the propagate sweep does.

@@ -106,15 +106,16 @@ def item_operands(rows: EdgeRows, x: torch.Tensor) -> tuple:
 def launch_item_sweep(name: str, m: torch.Tensor, rows: EdgeRows, x: torch.Tensor,
                       variant: int):
     """Launch the work-item sweep kernel ``name`` (``sketch_propagate`` or
-    ``cascade_step``) over ``rows`` and their work list. Returns ``(out,
+    ``cascade_step``) over ``rows`` and their work list, from the library
+    built at the list's block shape (``work.item_warps``). Returns ``(out,
     changed)``; the split rows' partials live in a scratch of
     ``num_partials x J`` bytes for the length of the call."""
     dev = check_cuda(m)
     work = work_of(rows)
+    fn = build.load(name, work.item_warps)
     out = torch.empty_like(m)
     partial = partial_scratch(work, m.shape[1], dev)
     changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = build.load(name)
     build.check(name, fn(m.data_ptr(), out.data_ptr(), partial.data_ptr(),
                          *item_operands(rows, x), work.num_items, work.num_split,
                          m.shape[1], int(variant), changed.data_ptr(), stream(dev)))

@@ -15,9 +15,9 @@
 // product, so the tensor cores have no part in it.
 //
 // The sweep writes destination rows; the edges come grouped by destination
-// row and cut into work items of at most CHUNK edges (kernels/edges.py, made
-// once per build), so R-MAT's in-degree hubs (39,415 edges at rmat:20) no
-// longer set the sweep's length:
+// row and cut into work items of at most item_edges edges (kernels/edges.py,
+// made once per build; CHUNK = 256 by default), so R-MAT's in-degree hubs
+// (39,415 edges at rmat:20) no longer set the sweep's length:
 //  1. one warp takes one item (items.cuh, over common.cuh's walk_edges):
 //     it gathers each edge's m_in[u, :] into a shared-memory ring by
 //     cp.async ahead of the walk, and a lane evaluates the predicate only

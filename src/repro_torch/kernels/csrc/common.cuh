@@ -63,9 +63,9 @@ inline bool aligned16(const void* p) {
 // ------------------------------------------------ work-item row walk ----
 //
 // The work-item sweeps (items.cuh) give one warp each work item
-// (kernels/edges.py, WorkList): at most CHUNK edges of one write row. The warp
-// takes the row's registers in passes of kChunkWords words, a lane holding
-// kLaneWords of them. In a pass it walks the item's edges once:
+// (kernels/edges.py, WorkList): at most item_edges edges of one write row.
+// The warp takes the row's registers in passes of kChunkWords words, a lane
+// holding kLaneWords of them. In a pass it walks the item's edges once:
 //  * lanes load 32 edges' (nbr, h, lo, thr) at a time, one coalesced load
 //    per array, and broadcast each edge with __shfl_sync;
 //  * the gathered rows m[nbr[e], pass] come into a ring of kStages slots of
@@ -81,8 +81,16 @@ constexpr int kLaneWords = 8;
 constexpr int kChunkWords = kWarp * kLaneWords;  // 1024 registers a pass
 constexpr int kChunkBytes = kChunkWords * 4;
 constexpr int kStages = 2;  // deeper rings measured slower on the H100
-constexpr int kItemWarps = 4;                    // warps (items) per block
+// warps (items) per block: 4 by default; kernels/build.py compiles the single
+// path's sweeps once per block shape with -DREPRO_ITEM_WARPS=<w>
+#ifndef REPRO_ITEM_WARPS
+#define REPRO_ITEM_WARPS 4
+#endif
+constexpr int kItemWarps = REPRO_ITEM_WARPS;
+static_assert(kItemWarps >= 1 && kItemWarps <= 32, "REPRO_ITEM_WARPS must be 1..32");
 constexpr int kRingBytes = kItemWarps * kStages * kChunkBytes;
+// dynamic shared memory a block gets without an opt-in attribute
+constexpr int kDefaultSharedBytes = 48 * 1024;
 
 // word of the row that lane's t-th word of the pass starting at base is:
 // units of VEC/4 words, unit k of lane at (k * 32 + lane)

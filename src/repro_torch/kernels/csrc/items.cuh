@@ -3,8 +3,9 @@
 // ring's propagate and cascade merges (bucket_propagate.cu) and its fused
 // prologue (fused_sweep.cu).
 //
-// The rows a sweep writes come cut into work items of at most CHUNK edges
-// (kernels/edges.py, WorkList). One warp takes one item:
+// The rows a sweep writes come cut into work items of at most item_edges
+// edges (kernels/edges.py, WorkList; CHUNK by default). One warp takes one
+// item, kItemWarps items a block:
 //  1. it starts from its row's words in `self_in`, walks the item's edges
 //     (common.cuh, walk_edges), gathering each edge's read row of `gather`
 //     into a shared-memory ring by cp.async, and folds them in with OP;
@@ -61,6 +62,7 @@ struct Propagate {
   // blocks of 4 warps an SM the 16-byte path is bounded to: 80 registers
   // without spilling, measured faster on the H100 than the 4 that 102
   // registers allow; the 4-byte path would spill there and is left unbounded
+  // (min_blocks16 scales it to other block shapes)
   static constexpr int kMinBlocks16 = 6;
 
   __device__ static uint32_t start(uint32_t own) { return own; }
@@ -118,9 +120,18 @@ struct Cascade {
   __device__ static uint32_t finish(uint32_t vis, uint32_t prev) { return vis | prev; }
 };
 
+// The minimum resident blocks of OP's 16-byte path at kItemWarps warps a
+// block: OP::kMinBlocks16 was sized for blocks of 4 warps, so it scales by
+// 4 / kItemWarps (at least 1) and the per-thread register budget stays the
+// 4-warp one (80 registers for Propagate, 102 for Cascade) or grows.
+template <class OP>
+constexpr int min_blocks16() {
+  return OP::kMinBlocks16 * 4 / kItemWarps > 0 ? OP::kMinBlocks16 * 4 / kItemWarps : 1;
+}
+
 template <class OP, int PRED, int VEC, bool IN_PLACE>
 __global__ void
-__launch_bounds__(kItemWarps * kWarp, VEC == 16 ? OP::kMinBlocks16 : 1)
+__launch_bounds__(kItemWarps * kWarp, VEC == 16 ? min_blocks16<OP>() : 1)
     item_sweep(const int8_t* self_in, const int8_t* __restrict__ gather, int8_t* out,
                int8_t* __restrict__ partial, const int32_t* __restrict__ item_ptr,
                const int32_t* __restrict__ item_row, const int32_t* __restrict__ item_slot,
@@ -219,6 +230,11 @@ int launch_item_sweep(const void* self_in, const void* gather, void* out, void* 
   const auto p0 = vec16 ? item_sweep<OP, 0, 16, IN_PLACE> : item_sweep<OP, 0, 4, IN_PLACE>;
   const auto p1 = vec16 ? item_sweep<OP, 1, 16, IN_PLACE> : item_sweep<OP, 1, 4, IN_PLACE>;
   const auto kernel = variant == 0 ? p0 : p1;
+  if (kRingBytes > kDefaultSharedBytes) {  // 8 warps: a 64 KiB ring a block
+    const cudaError_t st = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+    if (st != cudaSuccess) return st;
+  }
   const int blocks = (num_items + kItemWarps - 1) / kItemWarps;
   kernel<<<blocks, kItemWarps * kWarp, kRingBytes, s>>>(
       static_cast<const int8_t*>(self_in), static_cast<const int8_t*>(gather),

@@ -15,8 +15,9 @@
 // with no product, so the tensor cores have no part in it.
 //
 // The sweep writes source rows, and CUDA has no 8-bit atomicMax, so the
-// edges come grouped by source row and cut into work items of at most CHUNK
-// edges (kernels/edges.py, made once per build). R-MAT's out-degrees are
+// edges come grouped by source row and cut into work items of at most
+// item_edges edges (kernels/edges.py, made once per build; CHUNK = 256 by
+// default, repro_torch.tune measures others). R-MAT's out-degrees are
 // skewed (at rmat:20 the largest is 39,935, half the rows have none); a warp
 // per row would make the hub's walk the sweep's length. Here:
 //  1. one warp takes one item (items.cuh, over common.cuh's walk_edges):

@@ -45,7 +45,7 @@ def fused_sweep_cuda(m: torch.Tensor, rows: EdgeRows, x: torch.Tensor, *, varian
     scratch = torch.empty_like(m) if num_sweeps > 1 else out
     partial = partial_scratch(work, m.shape[1], dev)
     changed = torch.zeros(1, dtype=torch.int32, device=dev)   # set by the sweeps, unread
-    fn = build.load(NAME)
+    fn = build.load(NAME, work.item_warps)
     build.check(NAME, fn(m.data_ptr(), out.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
                          *item_operands(rows, x), work.num_items, work.num_split, m.shape[1],
                          int(variant), int(num_sweeps), changed.data_ptr(), stream(dev)))

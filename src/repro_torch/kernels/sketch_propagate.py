@@ -3,8 +3,9 @@ edge (u, v) for register j, ``out[u, j] = max(out[u, j], M[v, j])``,
 starting from ``out = M``; VISITED entries of M stay VISITED.
 
 ``propagate_sweep_cuda`` launches ``csrc/sketch_propagate.cu`` (one warp per
-work item of at most ``edges.CHUNK`` edges of a source row, then a merge of
-the split rows' partials), which replaces the Pallas kernel
+work item of ``edges.by_src.work``, at most its ``item_edges`` edges of a
+source row, then a merge of the split rows' partials; the library built at
+the list's ``item_warps`` warps a block), which replaces the Pallas kernel
 ``src/repro/kernels/sketch_propagate.py`` (``propagate_sweep_pallas``).
 ``propagate_sweep_plain`` is its plain PyTorch version over the serving-order
 edges. Both return ``(out, changed)``: ``changed`` is a one-element tensor on

@@ -1,6 +1,6 @@
-"""Shared CLI surface of the port's launchers: the workload flags, the
-graph-spec parser, and the ``--trace``/``--metrics`` observability flags
-with the ``observe`` context that serves them."""
+"""Shared CLI surface of the port's launchers: the workload flags (with
+``--tuning``), the graph-spec parser, and the ``--trace``/``--metrics``
+observability flags with the ``observe`` context that serves them."""
 from __future__ import annotations
 
 import argparse
@@ -50,8 +50,20 @@ def add_common_im_args(ap: argparse.ArgumentParser, *,
                      help="execution backend (auto: single unless a grid is asked for)")
     grp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                      help="cuda runs the CUDA kernels; cpu their plain versions")
+    add_tuning_arg(grp)
     add_obs_args(ap)
     return ap
+
+
+def add_tuning_arg(ap) -> None:
+    """The shared ``--tuning`` flag (``RunSpec.tuning``, ``repro_torch.tune``),
+    on a parser or an argument group."""
+    ap.add_argument("--tuning", default="off", choices=("off", "cached", "auto"),
+                    help="measured kernel tuning (repro_torch.tune): off = the "
+                         "defaults; cached = apply the winners of TUNE_cache.json "
+                         "($REPRO_TUNE_CACHE), a miss keeping the defaults; auto = "
+                         "measure a miss on the actual graph and persist it. "
+                         "Results are the same in every mode")
 
 
 def add_obs_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch im --graph rmat:20 --setting 0.1 \
         --k 50 --registers 1024 [--model wc] [--device cuda|cpu] \
         [--backend auto|single|serial] [--partition degree] [--mu-v 2] \
-        [--validate] [--ris] [--trace t.json] [--metrics m.jsonl]
+        [--tuning off|cached|auto] [--validate] [--ris] [--trace t.json] \
+        [--metrics m.jsonl]
 
 It prints what the reference launcher prints (``graph n=… m=…``, then
 ``backend=…``, with the measured partition stats on ``serial``, and
@@ -16,6 +17,10 @@ simulations, ``rng_seed = seed + 99``) and ``--ris`` runs the RIS/IMM
 baseline (4,000 RR sets) and scores its seeds the same way
 (``repro_torch.baselines``, host numpy): the reference launcher's lines and
 ``oracle_score``, ``ris_time_s``, ``ris_oracle``.
+
+``--tuning cached|auto`` runs the backend at the tuning cache's measured
+winners (``repro_torch.tune``; ``auto`` measures a miss first); the seeds
+are those of ``--tuning off``.
 
 ``--trace OUT.json`` records the drivers' spans (``launch.make_graph``,
 ``partition.*``, ``single.*`` or ``serial.*``) into a Chrome trace and
@@ -55,7 +60,8 @@ def _run(args) -> dict:
     else:
         mu_v = mu_s = 1
     spec = RunSpec(num_registers=args.registers, seed=args.seed, model=args.model,
-                   backend=args.backend, mu_v=mu_v, mu_s=mu_s, partition=args.partition)
+                   backend=args.backend, mu_v=mu_v, mu_s=mu_s, partition=args.partition,
+                   tuning=args.tuning)
     t0 = time.time()
     report = run_im(g, args.k, spec, device=args.device)
     dt = time.time() - t0
@@ -66,6 +72,12 @@ def _run(args) -> dict:
     else:
         print(f"backend={report.backend}")
     print(f"device={report.device}")
+    if args.tuning != "off":
+        knobs = (("item_edges", "cascade_item_edges", "item_warps")
+                 if report.backend == "single" else
+                 ("local_sweeps", "pad_mode", "fuse_sweeps", "lane_fill"))
+        print(f"tuning={args.tuning}: "
+              + " ".join(f"{f}={getattr(report.spec, f)}" for f in knobs) + " (0: the default)")
     print(f"difuser: {dt:.2f}s influence(est)={res.scores[-1]:.1f} "
           f"rebuilds={int(res.rebuilds.sum())}/{args.k}")
     if "prep_s" in st:

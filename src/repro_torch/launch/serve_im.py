@@ -17,7 +17,9 @@ deadline-driven micro-batching with a flush window of ``--deadline-ms`` / 4,
 ``--max-resident`` MB of resident store bytes), whose answers are byte-equal
 to the synchronous engine's; it prints the ``async:`` line and returns the
 ``admission`` summary. ``--trace OUT.json`` and ``--metrics OUT.jsonl``
-record the run's spans and metrics.
+record the run's spans and metrics. ``--tuning cached|auto`` runs the
+index's backend at the tuning cache's winners (``repro_torch.tune``); the
+answers are those of ``--tuning off``.
 """
 from __future__ import annotations
 
@@ -97,7 +99,7 @@ def _run(args):
                    backend=args.backend, mu_v=1, mu_s=1,
                    partition=args.partition if args.partition else "block",
                    serve_async=args.serve_async, deadline_ms=args.deadline_ms,
-                   max_resident_mb=args.max_resident)
+                   max_resident_mb=args.max_resident, tuning=args.tuning)
     store = SketchStore(num_banks=args.banks, spec=spec, device=args.device)
     sess = InfluenceSession(g, spec, store=store, device=args.device)
     print(f"device={sess.device}")

@@ -21,11 +21,13 @@ torch inside its device sync):
   * :mod:`repro_torch.obs.flight`  an always-on bounded ring of recent
     spans, dumped to Perfetto-loadable JSON on an engine exception, an SLO
     breach or an admission stall (importing this package installs its span
-    listener).
+    listener);
+  * :mod:`repro_torch.obs.report`  the self-contained HTML report of a run
+    (tiles, phase breakdown, shard skew, admission, kernel tuning, SLO),
+    byte-identical to the reference's for the same inputs.
 
 The launchers expose tracing and metrics with ``--trace OUT.json`` and
-``--metrics OUT.jsonl`` (``launch/common.observe``). The reference's HTML
-report is not ported yet (ROADMAP §1.5).
+``--metrics OUT.jsonl`` (``launch/common.observe``).
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                                      counter, gauge, histogram, load_jsonl, registry)

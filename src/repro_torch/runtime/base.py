@@ -20,6 +20,9 @@ implemented.
 ``serial`` for a grid of several (the port has no mesh backend yet). An
 explicit name is honored and raises, with the reason, when that backend
 cannot run the spec.
+
+``apply_tuning`` is the backends' tuning hook (``RunSpec.tuning``): the
+spec a backend runs carries the measured winners of ``repro_torch.tune``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,20 @@ from repro_torch.runtime.spec import RunSpec
 
 class BackendUnavailable(RuntimeError):
     """The requested backend cannot run this spec."""
+
+
+def apply_tuning(g: Optional[Graph], spec: RunSpec, backend_name: str, *,
+                 device=None) -> RunSpec:
+    """``spec`` with the tuning cache's winners for this graph, backend and
+    device overlaid, per ``spec.tuning`` (``repro_torch.tune.resolve_spec``).
+    ``"off"`` (or no graph) returns ``spec`` itself without importing the
+    tuner. The tuned fields are performance knobs only: seeds and matrices
+    are the same whichever spec comes back."""
+    if spec.tuning == "off" or g is None:
+        return spec
+    from repro_torch.tune import resolve_spec
+
+    return resolve_spec(g, spec, backend=backend_name, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

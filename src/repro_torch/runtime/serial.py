@@ -2,7 +2,10 @@
 (``partition/serial.py``), over a ``(mu_v, mu_s)`` shard grid. It is the
 backend that repairs individual plan shards of a store matrix
 (``repair_plan_shards``), the hook behind ``service.delta``'s shard
-repair; its ``fixpoint`` hook is that repair with every shard dirty."""
+repair; its ``fixpoint`` hook is that repair with every shard dirty.
+``find_seeds`` and ``build_matrix`` apply the spec's tuning
+(``apply_tuning``: the ring knobs ``local_sweeps``, ``pad_mode``,
+``fuse_sweeps``, ``lane_fill``) before they run."""
 from __future__ import annotations
 
 import time
@@ -18,7 +21,7 @@ from repro_torch.graphs.structs import Graph
 from repro_torch.partition import serial as _serial
 from repro_torch.partition.plan import plan_partition
 from repro_torch.runtime.base import (Backend, BackendCapabilities, RunReport,
-                                      register_backend)
+                                      apply_tuning, register_backend)
 from repro_torch.runtime.spec import RunSpec
 
 
@@ -42,6 +45,7 @@ class SerialRingBackend(Backend):
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
                    x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
         t0 = time.perf_counter()
+        spec = apply_tuning(g, spec, self.name, device=device)
         mu_v, mu_s = _grid(spec)
         res, part = _serial.find_seeds_ring_serial(
             g, k, spec.difuser_config(), mu_v=mu_v, mu_s=mu_s, strategy=spec.partition,
@@ -55,6 +59,7 @@ class SerialRingBackend(Backend):
                      reg_offset: int = 0, normalized: bool = False, edges=None,
                      plan=None, device=None):
         # ``edges`` does not apply: the ring buckets its own operands
+        spec = apply_tuning(g, spec, self.name, device=device)
         cfg = spec.difuser_config()
         if not normalized:
             g, x = normalize_inputs(g, cfg, x)

@@ -1,6 +1,7 @@
 """``single`` backend: the single-device Alg. 4 driver of core/difuser.py,
 and its two inner hooks (``fixpoint``, ``cascade``) over the port's edge
-operands."""
+operands. Each entry applies the spec's tuning (``apply_tuning``) and lowers
+the edges at the tuned spec's work-list geometry (``RunSpec.item_geometry``)."""
 from __future__ import annotations
 
 import time
@@ -17,7 +18,7 @@ from repro_torch.device import resolve_device
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
 from repro_torch.runtime.base import (Backend, BackendCapabilities, RunReport,
-                                      register_backend)
+                                      apply_tuning, register_backend)
 from repro_torch.runtime.spec import RunSpec
 
 
@@ -31,7 +32,9 @@ class SingleDeviceBackend(Backend):
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
                    x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
         t0 = time.perf_counter()
-        res = _difuser.find_seeds(g, k, spec.difuser_config(), x, device=device)
+        spec = apply_tuning(g, spec, self.name, device=device)
+        res = _difuser.find_seeds(g, k, spec.difuser_config(), x, device=device,
+                                  **spec.item_geometry())
         return RunReport(result=res, backend=self.name, spec=spec,
                          device=str(resolve_device(device)),
                          wall_s=time.perf_counter() - t0)
@@ -39,19 +42,21 @@ class SingleDeviceBackend(Backend):
     def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
                      reg_offset: int = 0, normalized: bool = False, edges=None,
                      plan=None, device=None):
+        spec = apply_tuning(g, spec, self.name, device=device)
         m, iters, _ = _difuser.build_sketch_matrix(
             g, spec.difuser_config(), x, reg_offset=reg_offset, normalized=normalized,
-            edges=edges, device=device)
+            edges=edges, device=device, **spec.item_geometry())
         return m, iters
 
     @staticmethod
     def _operands(m, g: Graph, spec: RunSpec, x: np.ndarray, edges, device):
         """(padded matrix, edges, x, variant, config) on the matrix's device
         (a numpy ``m`` goes to ``device``)."""
-        cfg = spec.difuser_config()
         dev = m.device if isinstance(m, torch.Tensor) else resolve_device(device)
+        spec = apply_tuning(g, spec, SingleDeviceBackend.name, device=dev)
+        cfg = spec.difuser_config()
         if edges is None:
-            edges = _difuser.edge_operands(g, cfg, dev)
+            edges = _difuser.edge_operands(g, cfg, dev, **spec.item_geometry())
         x = np.asarray(x, dtype=np.uint32)
         return (_difuser._as_matrix(m, x.shape[0], dev), edges, _difuser.x_tensor(x, dev),
                 resolve_model(cfg.model).variant, cfg)

@@ -1,8 +1,9 @@
 """RunSpec: what to run and how. Its sketch fields mirror
 ``core.difuser.DiFuserConfig``; the execution fields (``backend`` to
-``lane_fill``) choose and shape the backend, and the serving fields
-(``slo`` to ``max_resident_mb``) configure the query engines. Neither
-changes a result."""
+``item_warps``) choose and shape the backend, the serving fields (``slo`` to
+``max_resident_mb``) configure the query engines, and ``tuning`` says where
+the performance knobs come from (``repro_torch.tune``). None of them
+changes a result, and none enters ``DiFuserConfig``."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +11,7 @@ from typing import Optional, Tuple
 
 from repro_torch.core.difuser import DiFuserConfig
 from repro_torch.diffusion.constants import DEFAULT_MODEL
+from repro_torch.kernels.edges import CHUNK, ITEM_WARPS, ItemGeometry
 
 _SKETCH_FIELDS = tuple(f.name for f in dataclasses.fields(DiFuserConfig))
 
@@ -34,7 +36,15 @@ class RunSpec:
     fasst: bool = True           # FASST sample order (the serial ring always sorts)
     local_sweeps: int = 0        # comm-free sweeps before each ring sweep
     fuse_sweeps: bool = False    # run them as one fused_sweep call per shard
-    lane_fill: int = 0           # register slab of the fused sweep (no effect here)
+    lane_fill: int = 0           # the reference's register slab of the fused
+    #   sweep; the port's fused_sweep takes and ignores it (the tuner's
+    #   fused_sweep family still measures it)
+    # the single path's work-item geometry (kernels.edges.ItemGeometry; 0 =
+    # the default, CHUNK edges and ITEM_WARPS warps): edges an item of the
+    # propagate and of the cascade sweep, and warps a block of both
+    item_edges: int = 0
+    cascade_item_edges: int = 0
+    item_warps: int = 0
     # serving objectives: per-query-class p99 budgets, ((class, ms), ...),
     # read by the engines' SLO watchdog (empty: none)
     slo: Tuple[Tuple[str, float], ...] = ()
@@ -45,6 +55,10 @@ class RunSpec:
     serve_async: bool = False
     deadline_ms: float = 0.0
     max_resident_mb: float = 0.0
+    # measured kernel tuning (repro_torch.tune): "off" runs the fields above
+    # as they are; "cached" overlays the tuning cache's winners (a miss keeps
+    # them); "auto" measures a miss on the actual graph and persists it
+    tuning: str = "off"
 
     @property
     def num_shards(self) -> int:
@@ -53,6 +67,13 @@ class RunSpec:
 
     def difuser_config(self) -> DiFuserConfig:
         return DiFuserConfig(**{f: getattr(self, f) for f in _SKETCH_FIELDS})
+
+    def item_geometry(self) -> dict:
+        """The single path's ``propagate`` and ``cascade`` work-list geometry,
+        as ``core.difuser``'s entry points take it."""
+        warps = self.item_warps or ITEM_WARPS
+        return dict(propagate=ItemGeometry(self.item_edges or CHUNK, warps),
+                    cascade=ItemGeometry(self.cascade_item_edges or CHUNK, warps))
 
     @classmethod
     def from_config(cls, config: Optional[DiFuserConfig] = None,

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,6,7  # the serving phases (7 needs 6)
     python3 chip_smoke.py --phases 1,6,8  # the shard repair and spans (8 needs 6)
     python3 chip_smoke.py --phases 1,4,4b,9  # tuning and the report (9 needs 4, 4b)
+    python3 chip_smoke.py --phases 1,4,4b,10  # the mesh backend (10 needs 4, 4b)
 
 Phases (each raises on failure; none is caught):
 
@@ -105,7 +106,22 @@ Phases (each raises on failure; none is caught):
    comm-free sweeps stand in for ring sweeps); (d) ``obs.report`` of this
    run's records (phases 4, 4b, 6 and 7, phase 8 (d)'s spans, the metrics,
    the shard profiles, the cache), every section present. Launches of
-   (a)-(c) are ``launches_tune``.
+   (a)-(c) are ``launches_tune``;
+10. the ``mesh`` backend (needs 4 and 4b): (a) a world of 4 spawned ranks
+   sharing the card (gloo, every exchange staged through pinned host
+   buffers), grid 2x2, at phase 4b's spec with the ring schedule: seeds,
+   rebuilds and every sweep count equal phase 4b's, seeds equal phase 4's;
+   the ranks' launch counters, summed, show the six ring kernels launched
+   and no plain call (``launches_mesh``); each rank's prep/build/rounds
+   split, exchanges (calls, bytes sent, seconds) and peak memory, and rank
+   0's exchange spans; (b) the allgather schedule at K = 8, equal to the
+   first 8 rounds of (a); (c) ``MeshBackend.build_matrix`` at J = 512,
+   byte-equal to the single path's matrix; (d) a world of 1 on NCCL at
+   rmat:14, J = 256, K = 8, seeds equal to the single path's; (e) ``python
+   -m torch.distributed.run --nproc-per-node 4 -m repro_torch im --devices 4
+   --backend mesh`` at rmat:16, seeds equal to the serial backend's. The
+   shared-card world time-slices one card and exchanges through host
+   memory: it is no multi-GPU speed figure.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
@@ -121,7 +137,8 @@ the new index equal to a cold build); and ``repro_torch.launch.im
 It prints the ``kernels`` JSON line (``launches`` counts phase 4's or 4b's
 run, ``launches_serve`` phase 6's, ``launches_async`` phase 7's
 launcher and async engines, ``launches_repair`` phase 8's repairs,
-``launches_tune`` phase 9's tuning and tuned runs), the
+``launches_tune`` phase 9's tuning and tuned runs, ``launches_mesh``
+phase 10 (a)'s ranks, summed), the
 ``nvidia-smi`` line, and last the contract line ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository around it, it
 exits non-zero before printing any. Longer output goes to
@@ -2166,9 +2183,228 @@ def phase_tuning(full: dict, serial: dict, serve, smi: str, k: int) -> dict:
                 phase_s=phase_s)
 
 
+# -------------------------------------------------------------- phase 10 ----
+
+# phase 10's worlds: phase 4b's spec on a (2, 2) process mesh of 4 ranks
+# sharing the card (gloo, host-staged exchanges); (b) the allgather schedule
+# at K = 8, (c) a build at J = 512; (d) a world of 1 on NCCL; (e) the
+# launcher under torch.distributed.run
+MESH = dict(SERIAL, backend="mesh", schedule="ring")
+MESH_RANKS = 4
+MESH_ALLGATHER_K = 8
+MESH_BUILD_REGS = 512
+MESH_NCCL = dict(graph="rmat:14", registers=256, k=8)
+MESH_LAUNCHER_GRAPH = "rmat:16"
+MESH_TIMEOUT_S = 600.0
+
+
+def _span_sums(events) -> dict:
+    """{name: [count, seconds]} of the recorded spans."""
+    out: dict = {}
+    for ev in events:
+        c, t = out.get(ev["name"], (0, 0.0))
+        out[ev["name"]] = (c + 1, t + ev["dur_s"])
+    return out
+
+
+def _mesh_rank(rank: int, g, k: int) -> dict:
+    """Phase 10 (a)-(c) on one rank of the shared-card world."""
+    import torch
+
+    from repro_torch.kernels import counters
+    from repro_torch.obs import trace
+    from repro_torch.runtime import RunSpec, get_backend, run
+
+    rec = trace.get_recorder()
+    out: dict = {}
+    spec = RunSpec(num_registers=FULL["registers"], model=FULL["model"], **MESH)
+    for tag, kk, sp in (("a", k, spec),
+                        ("b", MESH_ALLGATHER_K, spec.with_(schedule="allgather"))):
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        if rank == 0:
+            rec.clear()
+            rec.start()
+        t0 = time.perf_counter()
+        rep = run(g, kk, sp, device="cuda")
+        wall = time.perf_counter() - t0
+        spans = {}
+        if rank == 0:
+            rec.stop()
+            spans = _span_sums(rec.events())
+        res = rep.result
+        out[tag] = dict(seeds=res.seeds.tolist(), rebuilds=res.rebuilds.tolist(),
+                        scores=res.scores.tolist(), propagate_iters=res.propagate_iters,
+                        stats=res.stats, wall_s=wall, spans=spans,
+                        launches=dict(counters.LAUNCHES), plain=dict(counters.PLAIN_CALLS),
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        device=rep.device, describe=rep.partition.stats().describe())
+    # (c) the build alone, against the single path's matrix at the same J
+    bspec = spec.with_(num_registers=MESH_BUILD_REGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m, iters = get_backend("mesh").build_matrix(g, bspec, None, device="cuda")
+    torch.cuda.synchronize()
+    out["c"] = dict(iters=iters, wall_s=time.perf_counter() - t0, shape=tuple(m.shape),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        want, want_iters = get_backend("single").build_matrix(
+            g, RunSpec(num_registers=MESH_BUILD_REGS, model=FULL["model"]), None,
+            device="cuda")
+        out["c"].update(equal=bool(torch.equal(m, want)), single_iters=want_iters)
+        del want
+    del m
+    return out
+
+
+def _nccl_rank(rank: int) -> dict:
+    """Phase 10 (d): a world of 1 on NCCL, against the single path."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.common import make_graph
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import RunSpec, run
+
+    g = make_graph(MESH_NCCL["graph"], FULL["setting"], 0)
+    base = dict(num_registers=MESH_NCCL["registers"], model=FULL["model"])
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    got = run(g, MESH_NCCL["k"], RunSpec(backend="mesh", **base), device="cuda", mesh=mesh)
+    want = run(g, MESH_NCCL["k"], RunSpec(**base), device="cuda")
+    return dict(backend=dist.get_backend(), transport=mesh.transport,
+                seeds=got.result.seeds.tolist(), single=want.result.seeds.tolist(),
+                iters=got.result.propagate_iters, single_iters=want.result.propagate_iters,
+                exchange=got.result.stats["exchange"])
+
+
+def phase_mesh(full: dict, serial: dict, k: int) -> dict:
+    """Phase 10: the mesh backend on process meshes that share the card
+    (needs phases 4 and 4b)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import im
+    from repro_torch.launch.mesh import spawn_world
+
+    check(full is not None and serial is not None, "phase 10 needs phases 4 and 4b")
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    g = full_graph()
+    t0 = time.perf_counter()
+    ranks = spawn_world(_mesh_rank, MESH_RANKS, workdir=work / "shared", device="cuda",
+                        args=(g, k), timeout_s=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    a = ranks[0]["a"]
+    log(f"[10a] mesh {FULL['graph']} J={FULL['registers']} K={k} grid 2x2 "
+        f"{MESH['partition']}, local_sweeps {MESH['local_sweeps']} fused, lane_fill "
+        f"{MESH['lane_fill']}, ring schedule; {MESH_RANKS} ranks on {a['device']} "
+        f"(gloo+host); world {world_s:.1f}s (spawn, (a), (b), (c), teardown)")
+    for r, rk in enumerate(ranks):
+        st = rk["a"]["stats"]
+        ex = st["exchange"]
+        log(f"[10a] rank {r}: prep dst sort {st['sort_s']:.3f}s, sample sets "
+            f"{st['sample_s']:.3f}s, plan {st['plan_s']:.3f}s, buckets {st['buckets_s']:.3f}s, "
+            f"rank state {st['state_s']:.3f}s; build {st['build_s']:.3f}s "
+            f"({rk['a']['propagate_iters']} sweeps); rounds {st['rounds_s']:.3f}s "
+            f"({st['cascade_sweeps']} cascade sweeps, {st['rebuild_sweeps']} rebuild sweeps); "
+            f"total {rk['a']['wall_s']:.2f}s; max_memory_allocated "
+            f"{rk['a']['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"[10a] rank {r} exchanges: " + "; ".join(
+            f"{kind} {v['calls']} calls, {v['bytes_sent'] / 1e9:.3f} GB sent, "
+            f"{v['seconds']:.3f}s" for kind, v in ex.items()))
+    spans = ranks[0]["a"]["spans"]
+    log("[10a] rank 0 spans: " + ", ".join(
+        f"{n} {t:.3f}s x{c}" for n, (c, t) in sorted(spans.items(), key=lambda i: -i[1][1])))
+    launches, plain = {}, {}
+    for rk in ranks:
+        for name, c in rk["a"]["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+        for name, c in rk["a"]["plain"].items():
+            plain[name] = plain.get(name, 0) + c
+    log(f"[10a] launches (all ranks) {launches}; plain calls {plain}")
+    check(not plain, f"plain versions ran on the mesh path: {plain}")
+    missing = [n for n in SERIAL_KERNELS if launches.get(n, 0) <= 0]
+    check(not missing, f"kernels not launched on the mesh path: {missing}")
+    for r, rk in enumerate(ranks):
+        check(rk["a"]["seeds"] == a["seeds"], f"10a: rank {r}'s seeds differ from rank 0's")
+    check(a["seeds"] == list(serial["seeds"]), "10a: mesh seeds differ from phase 4b's")
+    check(a["seeds"] == list(full["seeds"]), "10a: mesh seeds differ from phase 4's")
+    check(int(np.sum(a["rebuilds"])) == serial["rebuilds"], "10a: rebuilds differ from 4b's")
+    st = a["stats"]
+    sweeps = (a["propagate_iters"], st["cascade_sweeps"], st["rebuild_sweeps"])
+    want = (serial["propagate_iters"], serial["cascade_sweeps"], serial["rebuild_sweeps"])
+    check(sweeps == want, f"10a: sweeps {sweeps} differ from phase 4b's {want}")
+    log(f"[10a] seeds, rebuilds and sweeps {sweeps} equal phase 4b's; seeds equal phase 4's")
+    b = ranks[0]["b"]
+    check(b["seeds"] == a["seeds"][:MESH_ALLGATHER_K]
+          and b["rebuilds"] == a["rebuilds"][:MESH_ALLGATHER_K],
+          "10b: allgather seeds or rebuilds differ from the first of (a)")
+    bst = b["stats"]
+    log(f"[10b] allgather K={MESH_ALLGATHER_K}: build {bst['build_s']:.3f}s "
+        f"({b['propagate_iters']} sweeps), rounds {bst['rounds_s']:.3f}s "
+        f"({bst['cascade_sweeps']} cascade sweeps), total {b['wall_s']:.2f}s; rank 0 "
+        "exchanges: " + "; ".join(f"{kind} {v['calls']} calls, "
+                                  f"{v['bytes_sent'] / 1e9:.3f} GB sent, {v['seconds']:.3f}s"
+                                  for kind, v in bst["exchange"].items())
+        + f"; seeds and rebuilds equal the first {MESH_ALLGATHER_K} of (a)")
+    c = ranks[0]["c"]
+    check(c["equal"], "10c: the mesh's build differs from the single path's")
+    check(c["iters"] == ranks[1]["c"]["iters"], "10c: ranks disagree on the sweeps")
+    log(f"[10c] MeshBackend.build_matrix J={MESH_BUILD_REGS}: {c['shape']}, {c['iters']} "
+        f"sweeps (single path {c['single_iters']}), {c['wall_s']:.3f}s on rank 0, byte-equal "
+        "to the single path's matrix; peaks "
+        + ", ".join(f"{rk['c']['peak_bytes'] / 2**30:.2f}" for rk in ranks) + " GiB")
+    # (d) NCCL, one rank
+    t0 = time.perf_counter()
+    (d,) = spawn_world(_nccl_rank, 1, workdir=work / "nccl", device="cuda",
+                       timeout_s=MESH_TIMEOUT_S)
+    d_s = time.perf_counter() - t0
+    check(d["backend"] == "nccl" and d["transport"] == "nccl", f"10d: transport {d}")
+    check(d["seeds"] == d["single"], "10d: NCCL world's seeds differ from the single path's")
+    log(f"[10d] world of 1 on {d['transport']}, {MESH_NCCL['graph']} J="
+        f"{MESH_NCCL['registers']} K={MESH_NCCL['k']}: seeds equal the single path's "
+        f"({d['iters']} mesh sweeps, {d['single_iters']} single); {d_s:.1f}s with spawn; "
+        f"exchanges {d['exchange']}")
+    # (e) the launcher under torch.distributed.run, against the serial backend
+    args = ["--graph", MESH_LAUNCHER_GRAPH, "--setting", FULL["setting"], "--model",
+            FULL["model"], "--registers", str(FULL["registers"]), "--k", str(k)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MESH_RANKS), "-m", "repro_torch", "im", *args,
+           "--devices", str(MESH_RANKS), "--backend", "mesh"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=work, capture_output=True, text=True,
+                          timeout=MESH_TIMEOUT_S)
+    e_s = time.perf_counter() - t0
+    (OUT / "mesh_launcher.log").write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    check(proc.returncode == 0, f"10e: the launcher failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        log(f"[10e] {ln}")
+    seeds_lines = [ln for ln in lines if ln.startswith("seeds: ")]
+    check(len(seeds_lines) == 1, "10e: rank 0 alone prints")
+    got = json.loads(seeds_lines[0][len("seeds: "):])
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        want = im.run(args + ["--backend", "serial"])
+    check(got == want["seeds"], "10e: the launcher's mesh seeds differ from the serial "
+          "backend's")
+    log(f"[10e] {MESH_RANKS} ranks through torch.distributed.run at {MESH_LAUNCHER_GRAPH}: "
+        f"{e_s:.1f}s with startup; seeds equal the serial backend's")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[10] phase {phase_s:.1f}s")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, ranks=[{t: {kk: v for kk, v in rk[t].items()
+                                               if kk not in ("spans",)}
+                                           for t in ("a", "b", "c")} for rk in ranks],
+                spans=spans, nccl=d, world_s=world_s, launcher_s=e_s, phase_s=phase_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2218,13 +2454,18 @@ def main(argv=None) -> int:
     if tuning:
         for row in rows:   # and on the tuning path
             row["launches_tune"] = int(tuning["launches"].get(row["name"], 0))
+    mesh = phase_mesh(full, serial, args.k) if "10" in phases else None
+    if mesh:
+        for row in rows:   # and on the mesh's path, summed over its ranks
+            row["launches_mesh"] = int(mesh["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
         serial_out = {k: v for k, v in (serial or {}).items() if k != "partition"}
         (OUT / "kernels.json").write_text(json.dumps(
             dict(rows=rows, full=full, serial=serial_out, serve=serve,
-                 served_async=served_async, repair=repair, tuning=tuning, smi=smi), indent=1,
+                 served_async=served_async, repair=repair, tuning=tuning, mesh=mesh, smi=smi),
+            indent=1,
             default=str))
         print(json.dumps({"kernels": rows}))
     print(smi)

@@ -46,8 +46,10 @@ def add_common_im_args(ap: argparse.ArgumentParser, *,
     grp.add_argument("--partition", default="block",
                      help="vertex-assignment strategy of the 2-D partition: "
                           "block|degree|edge|random")
-    grp.add_argument("--backend", default="auto", choices=("auto", "single", "serial"),
-                     help="execution backend (auto: single unless a grid is asked for)")
+    grp.add_argument("--backend", default="auto",
+                     choices=("auto", "single", "serial", "mesh"),
+                     help="execution backend (auto: single for one shard; for a grid, "
+                          "mesh under a process group of enough ranks, else serial)")
     grp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                      help="cuda runs the CUDA kernels; cpu their plain versions")
     add_tuning_arg(grp)

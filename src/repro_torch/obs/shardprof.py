@@ -12,7 +12,10 @@ The serial ring (``partition/serial.py``) runs shard by shard, so each
 ``(shard, ring step)`` bucket merge is timed on its own
 (``per_step_timed=True``): on the card by a pair of CUDA events around the
 merge's launch, read after the sweep's flag sync; on the CPU by the host
-clock. The mesh's bytes-only capture waits for the port's multi-GPU slice.
+clock. The mesh (``core/distributed.py``) runs its shards at once, one per
+rank, so its profile holds each bucket's bytes (``add_partition_bytes``,
+off the partition's counts) and the wall time alone
+(``per_step_timed=False``), as the reference's does.
 
 ``publish`` keeps a profile in a bounded process ring (``profiles``) and,
 where the plan carries predicted stats, sets the
@@ -134,7 +137,7 @@ class MeasuredProfile:
 class ShardProfiler:
     """Sums the per-(shard, ring step) measurements of one build or
     fixpoint; the serial ring calls ``record`` for every timed merge and
-    ``count_sweep`` after each sweep."""
+    ``count_sweep`` after each sweep, the mesh ``add_partition_bytes`` once."""
 
     def __init__(self, mu_v: int, mu_s: int, *, backend: str, phase: str,
                  strategy: str = "block"):
@@ -154,6 +157,14 @@ class ShardProfiler:
 
     def count_sweep(self) -> None:
         self.sweeps += 1
+
+    def add_partition_bytes(self, counts: np.ndarray, j_loc: int, sweeps: int) -> None:
+        """Fold the buckets' real-edge ``counts`` (``int64[mu_v, mu_s, mu_v]``,
+        a partition's ``p_counts``) in as bytes, times the sweeps the
+        fixpoint ran; no time is recorded."""
+        per_edge = _EDGE_OPERAND_BYTES + 2 * int(j_loc)
+        self.step_bytes += counts.sum(axis=1).astype(np.int64) * per_edge * max(sweeps, 1)
+        self.sweeps += sweeps
 
     def finish(self, wall_s: Optional[float] = None) -> MeasuredProfile:
         return MeasuredProfile(

@@ -69,15 +69,33 @@ from repro_torch.partition.plan import PartitionPlan, plan_partition, sample_edg
 from repro_torch.utils import roofline
 
 
-def _bucket_rows(part: Partition2D, arrays, counts: np.ndarray):
-    """``rows[kk][v][s]``: the live slots of bucket (v, s, kk), grouped by
-    write row, with their work list."""
+def _shard_rows(part: Partition2D, arrays, counts: np.ndarray, v: int, s: int):
+    """``rows[kk]``: the live slots of bucket (v, s, kk) for each ring step,
+    grouped by write row, with their work list."""
     bh, bw, br, bt, bl = arrays
-    return [[[with_work(group_rows(bw[kk][v, s, :n], br[kk][v, s, :n], bh[kk][v, s, :n],
-                                   bl[kk][v, s, :n], bt[kk][v, s, :n], part.n_loc))
-              for s, n in enumerate(counts[v, :, kk].tolist())]
-             for v in range(part.mu_v)]
+    out = []
+    for kk in range(part.mu_v):
+        n = int(counts[v, s, kk])
+        out.append(with_work(group_rows(bw[kk][v, s, :n], br[kk][v, s, :n],
+                                        bh[kk][v, s, :n], bl[kk][v, s, :n],
+                                        bt[kk][v, s, :n], part.n_loc)))
+    return out
+
+
+def _bucket_rows(part: Partition2D, arrays, counts: np.ndarray):
+    """``rows[kk][v][s]``: ``_shard_rows`` of every shard."""
+    grid = [[_shard_rows(part, arrays, counts, v, s) for s in range(part.mu_s)]
+            for v in range(part.mu_v)]
+    return [[[grid[v][s][kk] for s in range(part.mu_s)] for v in range(part.mu_v)]
             for kk in range(part.mu_v)]
+
+
+def _partial_scratch(buckets, j_pad: int, device) -> torch.Tensor:
+    """The split rows' scratch of every merge of ``buckets`` (``EdgeRows``
+    with work lists): one, at the largest ``num_partials``, since the
+    merges run in order on one stream."""
+    return torch.empty((max(r.work.num_partials for r in buckets), j_pad),
+                       dtype=torch.int8, device=device)
 
 
 class _MergeTimer:
@@ -154,10 +172,9 @@ class _RingState:
                                           part.p_l), part.p_counts)
         self.c_rows = _bucket_rows(part, (part.c_h, part.c_w, part.c_r, part.c_t,
                                           part.c_l), part.c_counts)
-        buckets = [r for grid in (self.p_rows, self.c_rows)
-                   for step in grid for by_v in step for r in by_v]
-        self.partial = torch.empty((max(r.work.num_partials for r in buckets), j_pad),
-                                   dtype=torch.int8, device=dev)
+        self.partial = _partial_scratch([r for grid in (self.p_rows, self.c_rows)
+                                         for step in grid for by_v in step for r in by_v],
+                                        j_pad, dev)
         self.p_width = [int(a.shape[-1]) for a in part.p_h]
         self.c_width = [int(a.shape[-1]) for a in part.c_h]
         if matrix is not None:
@@ -342,11 +359,13 @@ def _visited_per_row(blk: torch.Tensor) -> torch.Tensor:
 
 def _prepare(g: Graph, x: np.ndarray, cfg: DiFuserConfig, *, mu_v: int, mu_s: int,
              strategy: str, pad_mode: str, device, stats: dict,
-             plan: Optional[PartitionPlan] = None) -> Partition2D:
-    """Sample sets, plan (unless given) and buckets on ``device``, timed into
+             plan: Optional[PartitionPlan] = None, method: str = "fasst") -> Partition2D:
+    """Sample sets (``method``: the sample partition, ``fasst`` or
+    ``naive``), plan (unless given) and buckets on ``device``, timed into
     ``stats``."""
     t0 = time.perf_counter()
-    sampled = sample_edge_sets(g, x, mu_s, seed=cfg.seed, model=cfg.model, device=device)
+    sampled = sample_edge_sets(g, x, mu_s, seed=cfg.seed, model=cfg.model, method=method,
+                               device=device)
     synchronize(device)
     t1 = time.perf_counter()
     if plan is None:

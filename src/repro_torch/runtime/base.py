@@ -16,10 +16,12 @@ spreads one committed seed. A backend whose capabilities report
 hook raises ``NotImplementedError``, naming the backend, where it is not
 implemented.
 
-``resolve_backend`` implements ``backend="auto"``: ``single`` for one shard,
-``serial`` for a grid of several (the port has no mesh backend yet). An
-explicit name is honored and raises, with the reason, when that backend
-cannot run the spec.
+``resolve_backend`` implements ``backend="auto"`` as the reference does:
+``single`` for one shard and no mesh; else ``mesh`` where it supports the
+spec (an initialized process group of enough ranks, ``runtime/mesh.py``);
+else ``serial``, which runs the same schedule on one device. An explicit
+name is honored and raises, with the reason, when that backend cannot run
+the spec.
 
 ``apply_tuning`` is the backends' tuning hook (``RunSpec.tuning``): the
 spec a backend runs carries the measured winners of ``repro_torch.tune``.
@@ -144,13 +146,24 @@ def get_backend(name: str) -> Backend:
     return b
 
 
-def resolve_backend(spec: RunSpec, g: Optional[Graph] = None) -> Backend:
-    """``auto``: ``single`` for one shard, ``serial`` otherwise."""
-    name = spec.backend
-    if name == "auto":
-        name = "single" if spec.num_shards <= 1 else "serial"
-    b = get_backend(name)
-    ok, why = b.supports(g, spec)
+def resolve_backend(spec: RunSpec, g: Optional[Graph] = None, *, mesh=None) -> Backend:
+    """Apply the ``backend="auto"`` rules (module doc) to pick a backend."""
+    if spec.backend != "auto":
+        b = get_backend(spec.backend)
+        ok, why = b.supports(g, spec)
+        if not ok:
+            raise BackendUnavailable(f"backend {spec.backend!r} cannot run this spec: {why}")
+        return b
+    if mesh is None and spec.num_shards <= 1:
+        return get_backend("single")
+    b = get_backend("mesh")
+    ok, _ = b.supports(g, spec)
+    if ok:
+        return b
+    serial = get_backend("serial")
+    ok, why = serial.supports(g, spec)
     if not ok:
-        raise BackendUnavailable(f"backend {name!r} cannot run this spec: {why}")
-    return b
+        raise BackendUnavailable(
+            f"no backend can run this spec: mesh unavailable and the "
+            f"serial fallback cannot either: {why}")
+    return serial

@@ -3,7 +3,10 @@
 ``item_warps``) choose and shape the backend, the serving fields (``slo`` to
 ``max_resident_mb``) configure the query engines, and ``tuning`` says where
 the performance knobs come from (``repro_torch.tune``). None of them
-changes a result, and none enters ``DiFuserConfig``."""
+changes a result, and none enters ``DiFuserConfig``: the mesh backend reads
+its share of them through ``distributed_config``. ``fasst`` is the one
+exception there: on the mesh, as in the reference, ``fasst=False`` takes the
+naive sample partition and returns x unsorted."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +17,9 @@ from repro_torch.diffusion.constants import DEFAULT_MODEL
 from repro_torch.kernels.edges import CHUNK, ITEM_WARPS, ItemGeometry
 
 _SKETCH_FIELDS = tuple(f.name for f in dataclasses.fields(DiFuserConfig))
+#: the execution fields that ``DistributedConfig`` carries
+_EXEC_FIELDS = ("vertex_axis", "sim_axes", "schedule", "fasst", "local_sweeps",
+                "fuse_sweeps", "lane_fill", "partition", "pad_mode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,12 +34,16 @@ class RunSpec:
     sort_x: bool = True
     model: str = DEFAULT_MODEL
     # execution strategy
-    backend: str = "auto"        # "auto" | "single" | "serial"
+    backend: str = "auto"        # "auto" | "single" | "serial" | "mesh"
     mu_v: int = 1                # vertex shards of the 2-D grid
     mu_s: int = 1                # sample-space (sim) shards
     partition: str = "block"     # vertex-assignment strategy (partition.plan)
     pad_mode: str = "step"       # "step" | "global" bucket padding
-    fasst: bool = True           # FASST sample order (the serial ring always sorts)
+    fasst: bool = True           # FASST sample partition (mesh: False = naive;
+    #   the serial ring always sorts)
+    schedule: str = "ring"       # "ring" | "allgather" (mesh backend)
+    vertex_axis: str = "data"    # the mesh's axis names (launch.mesh)
+    sim_axes: Tuple[str, ...] = ("model",)
     local_sweeps: int = 0        # comm-free sweeps before each ring sweep
     fuse_sweeps: bool = False    # run them as one fused_sweep call per shard
     lane_fill: int = 0           # the reference's register slab of the fused
@@ -67,6 +77,15 @@ class RunSpec:
 
     def difuser_config(self) -> DiFuserConfig:
         return DiFuserConfig(**{f: getattr(self, f) for f in _SKETCH_FIELDS})
+
+    def distributed_config(self):
+        """The ``core.distributed.DistributedConfig`` of the mesh backend:
+        the sketch fields and the mesh's execution fields."""
+        from repro_torch.core.distributed import DistributedConfig
+
+        kw = {f: getattr(self, f) for f in _SKETCH_FIELDS + _EXEC_FIELDS}
+        kw["sim_axes"] = tuple(self.sim_axes)
+        return DistributedConfig(**kw)
 
     def item_geometry(self) -> dict:
         """The single path's ``propagate`` and ``cascade`` work-list geometry,

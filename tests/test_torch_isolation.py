@@ -40,10 +40,11 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 def test_walk_covers_the_host_modules():
     """The source scan above covers the presets, the utilities, the shard
-    profiles and the supervisor."""
+    profiles, the supervisor and the mesh backend's modules."""
     files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"configs/__init__.py", "configs/difuser_workloads.py", "utils/__init__.py",
-            "utils/roofline.py", "obs/shardprof.py", "launch/ft.py"} <= files
+            "utils/roofline.py", "obs/shardprof.py", "launch/ft.py", "launch/mesh.py",
+            "core/distributed.py", "runtime/mesh.py"} <= files
 
 
 @pytest.fixture

@@ -202,13 +202,16 @@ def test_ring_state_buckets_carry_work_lists(monkeypatch):
 def test_resolve_backend():
     assert resolve_backend(RunSpec()).name == "single"
     assert resolve_backend(RunSpec(mu_v=2, mu_s=1)).name == "serial"
-    assert [get_backend(n).capabilities().distributed for n in ("single", "serial")] == [
-        False, True]
+    assert [get_backend(n).capabilities().distributed
+            for n in ("single", "serial", "mesh")] == [False, True, True]
     assert resolve_backend(RunSpec(backend="single", mu_v=2, mu_s=2)).name == "single"
     with pytest.raises(BackendUnavailable, match="not divisible by mu_s=3"):
         resolve_backend(RunSpec(backend="serial", num_registers=64, mu_s=3))
-    with pytest.raises(KeyError, match="unknown backend"):
+    # the mesh backend needs a process group; this process has none
+    with pytest.raises(BackendUnavailable, match="no process group"):
         resolve_backend(RunSpec(backend="mesh"))
+    with pytest.raises(KeyError, match="unknown backend"):
+        resolve_backend(RunSpec(backend="nope"))
 
 
 def test_launcher_serial_on_cpu():

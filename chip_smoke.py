@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,6,8  # the shard repair and spans (8 needs 6)
     python3 chip_smoke.py --phases 1,4,4b,9  # tuning and the report (9 needs 4, 4b)
     python3 chip_smoke.py --phases 1,4,4b,10  # the mesh backend (10 needs 4, 4b)
+    python3 chip_smoke.py --phases 1,6,11  # device-resident serving (11 needs 6)
 
 Phases (each raises on failure; none is caught):
 
@@ -78,18 +79,19 @@ Phases (each raises on failure; none is caught):
 8. shard repair and spans, on phase 6's index of phase 4's graph (J=512):
    (a) an 8-shard ``block`` plan (``mu_s`` 1) attached, phase 6's
    1,024-edge random delta through ``apply_delta(…, backend="serial")``,
-   byte-equal to the per-bank repair of the same delta on a clone and to
-   phase 6's repaired matrix, all 8 shards swept; the ``single`` and the
-   ``serial`` backends' ``fixpoint`` hooks from the unrepaired matrix equal
-   to it; (b) 1,024 insertions with both endpoints in plan shard 0
-   (``plan_shards_touched == (0,)``), byte-equal to the per-bank repair,
-   the shards swept per sweep printed; a warm top-k after both equal to a
-   cold ``find_seeds``, and the ``cascade`` hook; (c) the build, both
-   repairs and the cascade hook replayed on the plain path, equal; (d)
+   byte-equal to phase 6's per-bank repair of the same delta, all 8 shards
+   swept; the ``single`` and the ``serial`` backends' ``fixpoint`` hooks
+   from the unrepaired matrix equal to it; (b) 1,024 insertions with both
+   endpoints in plan shard 0 (``plan_shards_touched == (0,)``), byte-equal
+   to the per-bank repair on a clone, the shards swept per sweep printed; a
+   warm top-k after both equal to a cold ``find_seeds``, and the ``cascade``
+   hook; (c) at rmat:18, the build, both kinds of repair and the cascade
+   hook on the kernel path and replayed on the plain path, equal; (d)
    ``repro_torch.launch.im --trace --metrics`` at phase 4's size and the
    phase 4b grid traced (``observe``), seeds equal to phases 4 and 4b: span
    coverage, lanes, the top spans, the measured shard profile and its
-   ``partition.predicted_vs_measured_edge_imb`` gauge. Each repair runs with
+   ``partition.predicted_vs_measured_edge_imb`` gauge (the launcher takes
+   phase 4's graph instead of generating it again). Each repair runs with
    the span recorder on, its merges timed by CUDA events; its launches, with
    the hooks' and the warm top-k's, are ``launches_repair``;
 9. tuning and the report, at phase 4's size (needs 4 and 4b; 6-8 feed the
@@ -121,7 +123,29 @@ Phases (each raises on failure; none is caught):
    -m torch.distributed.run --nproc-per-node 4 -m repro_torch im --devices 4
    --backend mesh`` at rmat:16, seeds equal to the serial backend's. The
    shared-card world time-slices one card and exchanges through host
-   memory: it is no multi-GPU speed figure.
+   memory: it is no multi-GPU speed figure;
+11. device-resident serving (needs 6): phase 6's index (rmat:20, J = 512,
+   one bank) built on the controller of a serving world of 4 spawned ranks
+   sharing the card (``launch.mesh.serve_world``; gloo, host-staged), a
+   4-shard ``block`` plan attached and the index placed as row blocks; (a)
+   phase 6's 1,000-query stream through the sync engine, answers
+   byte-equal to phase 6's host answers, qps, p50, p99 and the all-reduce
+   MAX exchanges; (b) that stream's warm top-10 off the placed blocks: the
+   partition's host seconds, ring shifts, bytes and seconds, sweeps; (d)
+   the async engine on the placed entry, answers equal to (a)'s; (c) phase
+   6's delta through ``apply_delta``: routed to ``mesh``, the gathered
+   matrix byte-equal to phase 6's repaired matrix and to the ``serial``
+   shard repair at the same plan, sweeps and shards swept equal to it; the
+   delta's host seconds, rank 0's merges on the device (CUDA events) and
+   the exchanges; each rank's peak memory, and its launches from placement
+   to (c)'s mesh repair, reset and read by operations of the world on every
+   rank (the store builds, the plan and the serial twin's repair run before
+   that window; every rank launched the path's five kernels, no other
+   kernel, no plain call; ``launches_mesh_serve``, summed);
+   (e) ``python -m torch.distributed.run --nproc-per-node 4 -m repro_torch
+   serve --residency device --plan-shards 4`` at rmat:16, its answers equal
+   to a host-resident run's. As in phase 10 the ranks time-slice one card
+   and exchange through host memory: no multi-GPU figure.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
@@ -138,7 +162,8 @@ It prints the ``kernels`` JSON line (``launches`` counts phase 4's or 4b's
 run, ``launches_serve`` phase 6's, ``launches_async`` phase 7's
 launcher and async engines, ``launches_repair`` phase 8's repairs,
 ``launches_tune`` phase 9's tuning and tuned runs, ``launches_mesh``
-phase 10 (a)'s ranks, summed), the
+phase 10 (a)'s ranks, summed, ``launches_mesh_serve`` phase 11's ranks
+from placement to the mesh repair, summed), the
 ``nvidia-smi`` line, and last the contract line ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository around it, it
 exits non-zero before printing any. Longer output goes to
@@ -1325,7 +1350,7 @@ def phase_serve() -> dict:
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
-    out, sess, _ = serve_im.run(argv, return_session=True)
+    out, sess, served = serve_im.run(argv, return_session=True)
     wall = time.perf_counter() - t0
     launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
     entry = sess.entry()
@@ -1406,7 +1431,7 @@ def phase_serve() -> dict:
         f"({cold_s:.3f}s); max_memory_allocated {peak / 2**30:.2f} GiB")
     # phase 7 repeats this build and this delta through the async engine
     _SERVE.update(built=built, repaired=repaired, delta=delta, graph=graph_before,
-                  spec=sess.spec,
+                  spec=sess.spec, answers=[_exact(r) for r in served],
                   insert=(rep.repair_sweeps, rep.banks_touched, rep.rebuilt))
     plain_s = _serve_plain_replay(sess.spec, graph_before, delta, built, rep, repaired, warm)
     host = _serve_host_split(entry, delta)
@@ -1489,7 +1514,7 @@ def _serve_host_split(entry, delta) -> dict:
     return split
 
 
-_SERVE: dict = {}   # phase 6's built and repaired matrices and its delta, for phase 7
+_SERVE: dict = {}   # phase 6's matrices, delta and answers, for phases 7, 8 and 11
 _TRACED: list = []  # phase 8 (d)'s span events, for phase 9's report
 
 
@@ -1803,7 +1828,7 @@ def phase_shard_repair(full, serial, k: int) -> dict:
     from repro_torch.graphs import GraphDelta
     from repro_torch.kernels import counters
     from repro_torch.launch import im
-    from repro_torch.launch.common import observe
+    from repro_torch.launch.common import make_graph, observe
     from repro_torch.obs import metrics, shardprof, trace
     from repro_torch.partition import plan_partition
     from repro_torch.runtime import InfluenceSession, RunSpec, get_backend, run
@@ -1828,18 +1853,14 @@ def phase_shard_repair(full, serial, k: int) -> dict:
                           strategy=REPAIR["strategy"], x=x, seed=spec.seed, device="cuda")
     plan_s = time.perf_counter() - t0
     sess.store.attach_plan(key, plan)
-    clone = sess.store.shadow(key)  # the per-bank repair's copy, sharing version 0's banks
 
-    # (a) phase 6's random delta
-    t0 = time.perf_counter()
-    rep_pb = apply_delta(clone, key, delta)
-    pb_s = time.perf_counter() - t0
+    # (a) phase 6's random delta; its per-bank repair is phase 6's own, whose
+    # matrix this one must equal (the phase no longer repeats it on a clone)
     rep_a, m_a, wall_a, dev_a, spans_a = _traced_repair(sess.store, key, delta, launches,
                                                         "8a repair")
-    check(torch.equal(m_a, clone.entry(key).matrix),
-          "8a: the shard repair differs from the per-bank repair")
     check(np.array_equal(m_a.cpu().numpy(), _SERVE["repaired"]),
-          "8a: the shard repair differs from phase 6's repaired matrix")
+          "8a: the shard repair differs from phase 6's per-bank repaired matrix")
+    clone = sess.store.shadow(key)  # (b)'s per-bank repair's copy, sharing (a)'s banks
     check(torch.equal(built, torch.from_numpy(_SERVE["built"]).cuda()),
           "8a: the repair wrote version 0's matrix")
     all_shards = tuple(range(REPAIR["plan_shards"]))
@@ -1852,8 +1873,8 @@ def phase_shard_repair(full, serial, k: int) -> dict:
         f"{rep_a.plan_shards_touched}, shards swept {rep_a.shards_swept}, banks touched "
         f"{rep_a.banks_touched}; bucket_propagate launches "
         f"{launches.get('bucket_propagate', 0)}; host {wall_a:.3f}s, merges on the device "
-        f"{dev_a:.3f}s; byte-equal to the per-bank repair on a clone ({pb_s:.3f}s, "
-        f"{rep_pb.repair_sweeps} sweeps) and to phase 6's")
+        f"{dev_a:.3f}s; byte-equal to phase 6's per-bank repair of it "
+        f"({_SERVE['insert'][0]} sweeps)")
     log(f"[8a] spans: {_span_split(spans_a)}")
 
     # the backends' hooks from version 0's matrix on the post-(a) graph
@@ -1915,29 +1936,60 @@ def phase_shard_repair(full, serial, k: int) -> dict:
         f"{peak_kernel / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
 
-    # (c) the plain path
+    # (c) the plain path, at rmat:18: the build, both repairs and the cascade
+    # hook on both paths (a cut of depth from rmat:20, which bounds the
+    # script's time; the kernel path at rmat:20 is held by (a) and (b) above)
+    del m_c, m_a, m_b, built, sess, entry
+    torch.cuda.empty_cache()
+    g18 = make_graph(TENANT_GRAPH, FULL["setting"], 0)
+    plan18 = plan_partition(g18.sorted_by_dst(), REPAIR["plan_shards"], mu_s=1,
+                            strategy=REPAIR["strategy"], x=x, seed=spec.seed, device="cuda")
+    rng = np.random.default_rng(1)
+    d18 = [GraphDelta.make(add=(rng.integers(0, g18.n, REPAIR["delta_edges"]),
+                                rng.integers(0, g18.n, REPAIR["delta_edges"])))]
+    in_0 = np.flatnonzero(plan18.owner_of(np.arange(g18.n)) == 0)
+    d18.append(GraphDelta.make(add=(rng.choice(in_0, REPAIR["delta_edges"]),
+                                    rng.choice(in_0, REPAIR["delta_edges"]))))
+    s18 = int(np.argmax(np.bincount(g18.src[:g18.m_real], minlength=g18.n)))
+
+    def replay():
+        psess = InfluenceSession(g18, spec, device="cuda")
+        pe = psess.entry()
+        psess.store.attach_plan(pe.key, plan18)
+        got = dict(built=pe.matrix.clone())
+        for name, d in zip(("a", "b"), d18):
+            got[name] = apply_delta(psess.store, pe.key, d, backend="serial")
+            got[name + "_m"] = psess.store.entry(pe.key).matrix
+        pe = psess.store.entry(pe.key)
+        got["cascade"] = single.cascade(got["b_m"], s18, pe.graph, spec, pe.x)
+        return got
+
+    t0 = time.perf_counter()
+    with _counted(Counter(), "8c kernel path"):
+        kern = replay()
+    kern_s = time.perf_counter() - t0
     counters.reset()
     t0 = time.perf_counter()
     with plain_ops():
-        psess = InfluenceSession(graph, spec, device="cuda")
-        pe = psess.entry()
-        check(torch.equal(pe.matrix, built), "8c: the plain build differs")
-        psess.store.attach_plan(pe.key, plan)
-        p_a = apply_delta(psess.store, pe.key, delta, backend="serial")
-        check(torch.equal(psess.store.entry(pe.key).matrix, m_a), "8c: (a) differs")
-        p_b = apply_delta(psess.store, pe.key, local, backend="serial")
-        check(torch.equal(psess.store.entry(pe.key).matrix, m_b), "8c: (b) differs")
-        p_c, p_it = single.cascade(m_b, s0, g_b, spec, x)
+        plain = replay()
     plain_s = time.perf_counter() - t0
     check(not counters.LAUNCHES, f"8c plain path launched {dict(counters.LAUNCHES)}")
-    for got, want in ((p_a, rep_a), (p_b, rep_b)):
+    for name in ("built", "a_m", "b_m"):
+        check(torch.equal(kern[name], plain[name]), f"8c: {name} differs")
+    for name in ("a", "b"):
         for field in ("repair_sweeps", "plan_shards_touched", "shards_swept", "banks_touched"):
-            check(getattr(got, field) == getattr(want, field), ("8c report", field))
-    check(torch.equal(p_c, m_c) and p_it == it_c, "8c: the cascade hook differs")
-    log(f"[8c] plain-path replay ({plain_s:.2f}s, plain calls {dict(counters.PLAIN_CALLS)}): "
-        f"build, both repairs, their sweeps and shards and the cascade hook equal the "
-        f"kernel path's")
-    del psess, pe, p_c, m_c, m_a, m_b, built, sess, entry
+            check(getattr(kern[name], field) == getattr(plain[name], field),
+                  ("8c report", name, field))
+    check(kern["b"].plan_shards_touched == (0,) and kern["a"].repair_backend == "serial",
+          f"8c reports {kern['a']}, {kern['b']}")
+    check(torch.equal(kern["cascade"][0], plain["cascade"][0])
+          and kern["cascade"][1] == plain["cascade"][1], "8c: the cascade hook differs")
+    log(f"[8c] plain-path replay at {TENANT_GRAPH} ({plain_s:.2f}s; the kernel path "
+        f"{kern_s:.2f}s; plain calls {dict(counters.PLAIN_CALLS)}): build, both repairs "
+        f"({kern['a'].repair_sweeps} and {kern['b'].repair_sweeps} sweeps, shards swept "
+        f"{kern['b'].shards_swept} for the delta inside shard 0), their sweeps and shards and "
+        f"the cascade hook ({kern['cascade'][1]} sweeps) equal the kernel path's")
+    del kern, plain
 
     # (d) the launcher's spans at full size, single path and the phase 4b grid
     traced = {}
@@ -1948,7 +2000,8 @@ def phase_shard_repair(full, serial, k: int) -> dict:
             "--trace", str(OUT / "trace_single.json"),
             "--metrics", str(OUT / "metrics_single.jsonl")]
     t0 = time.perf_counter()
-    out = im.run(argv)
+    with _reuse_full_graph(im):   # phase 4's graph, not a second generation of it
+        out = im.run(argv)
     traced["single"] = dict(wall_s=time.perf_counter() - t0, time_s=out["time_s"],
                             seeds=out["seeds"], events=rec.events())
     args = argparse.Namespace(trace=str(OUT / "trace_serial.json"),
@@ -1988,12 +2041,12 @@ def phase_shard_repair(full, serial, k: int) -> dict:
         f"{peak / 2**30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f}s")
     return dict(launches=dict(launches), plan_s=plan_s,
                 a=dict(sweeps=rep_a.repair_sweeps, swept=list(rep_a.shards_swept),
-                       host_s=wall_a, device_s=dev_a, per_bank_s=pb_s,
-                       per_bank_sweeps=rep_pb.repair_sweeps),
+                       host_s=wall_a, device_s=dev_a, per_bank_sweeps=_SERVE["insert"][0]),
                 b=dict(sweeps=rep_b.repair_sweeps, swept=list(rep_b.shards_swept),
                        per_sweep=per_sweep, host_s=wall_b, device_s=dev_b,
                        per_bank_s=pb_b_s, per_bank_sweeps=rep_pb_b.repair_sweeps),
-                plain_s=plain_s, hooks=dict(single_s=t1 - t0, serial_s=t2 - t1),
+                plain_s=plain_s, plain_graph=TENANT_GRAPH,
+                hooks=dict(single_s=t1 - t0, serial_s=t2 - t1),
                 traced={n: {k2: v for k2, v in t.items() if k2 != "events"}
                         for n, t in traced.items()},
                 edge_imb_ratio=gauge, profile=prof.summary(), peak_bytes=peak,
@@ -2402,9 +2455,303 @@ def phase_mesh(full: dict, serial: dict, k: int) -> dict:
                 spans=spans, nccl=d, world_s=world_s, launcher_s=e_s, phase_s=phase_s)
 
 
+# -------------------------------------------------------------- phase 11 ----
+
+# phase 11: phase 6's index placed on a serving mesh of 4 ranks sharing the
+# card (gloo, host-staged) under a 4-shard block plan (4, not the serve
+# launcher's 8, bounds the chip time; phase 8 keeps the 8-shard plan on the
+# serial ring); (e) the launcher's --residency device at rmat:16
+SERVING = dict(ranks=4, strategy="block")
+SERVING_LAUNCHER_GRAPH = "rmat:16"
+# the device-resident path: the partition's sample sets, the warm rounds'
+# fill, selection, cascades and rebuild sweeps, the repair's merges, the
+# queries' estimator
+MESH_SERVE_KERNELS = ("fused_sample", "sketch_fill", "sketch_cardinality",
+                      "bucket_propagate", "bucket_cascade")
+
+
+def _digest(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.blake2b(np.ascontiguousarray(a).tobytes(), digest_size=32).hexdigest()
+
+
+def _serving_rank(rank: int, g, inp: dict) -> dict:
+    """Phase 11 (a)-(d) on one rank of the shared-card serving world: rank 0
+    controls it, the others follow."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+
+    torch.cuda.reset_peak_memory_stats()
+    res = M.serve_world(lambda: _serving_controller(g, inp), graphs=[g])
+    out = dict(peak_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        out.update(res)
+    return out
+
+
+def _op_launch_window(state, p, local):
+    """Phase 11's launch window, an operation of the serving world: "reset"
+    zeroes every rank's counters; "read" gathers every rank's launches and
+    plain calls to the controller, in rank order."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import ProcessMesh
+
+    if p["do"] == "reset":
+        counters.reset()
+        return None
+    mesh = ProcessMesh.by_key(p["mesh"])
+    got = [None] * mesh.size
+    dist.all_gather_object(got, (dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)),
+                           group=mesh.grid_group)
+    return got
+
+
+def _serving_controller(g, inp: dict) -> dict:
+    import torch
+
+    from repro_torch.launch import serve_im
+    from repro_torch.launch.mesh import require_controller
+    from repro_torch.obs import trace
+    from repro_torch.partition import plan_partition
+    from repro_torch.service import (AsyncInfluenceEngine, InfluenceEngine, Request,
+                                     SketchStore, TopKSeeds, apply_delta, summarize_latencies)
+
+    spec = inp["spec"]
+    out: dict = {}
+    store = SketchStore(num_banks=SERVE["banks"], spec=spec, device="cuda")
+    t0 = time.perf_counter()
+    e = store.get_or_build(g, spec.difuser_config())
+    out.update(get_s=time.perf_counter() - t0, build_s=e.build_time_s,
+               built=_digest(e.matrix.cpu().numpy()))
+    t0 = time.perf_counter()
+    plan = plan_partition(e.graph, SERVING["ranks"], mu_s=1, strategy=SERVING["strategy"],
+                          x=e.x, seed=spec.seed, device="cuda")
+    store.attach_plan(e.key, plan)
+    out["plan_s"] = time.perf_counter() - t0
+    # (c)'s reference, before the launch window: the serial shard repair of
+    # phase 6's delta at this plan, on a host-resident twin
+    twin = SketchStore(num_banks=SERVE["banks"], spec=spec, device="cuda")
+    te = twin.get_or_build(g, spec.difuser_config())
+    twin.attach_plan(te.key, plan)
+    t0 = time.perf_counter()
+    rep_s = apply_delta(twin, te.key, inp["delta"], backend="serial")
+    serial_s = time.perf_counter() - t0
+    twin_m = twin.entry(te.key).matrix
+    del twin, te
+
+    # the launch window: placement, (a), (b), (d) and (c)'s mesh repair, on every rank
+    ctl = require_controller()
+    mesh = ctl.serving_mesh(SERVING["ranks"], device="cuda")
+    ctl.call(_op_launch_window, {"mesh": mesh.key, "do": "reset"})
+    t0 = time.perf_counter()
+    e.place_on_mesh(mesh)
+    torch.cuda.synchronize()
+    out.update(place_s=time.perf_counter() - t0, residency=e.residency,
+               serving=e.serving_backend, device_bytes=e.device_bytes(),
+               block_bytes=plan.n_loc * e.x.shape[0], describe=mesh.describe())
+
+    # (a) the stream through the sync engine; (b) its warm top-10
+    workload = serve_im.make_workload(e.graph.n, SERVE["queries"], k=SERVE["topk"], seed=7)
+    engine = InfluenceEngine(store, max_batch=SERVE["max_batch"])
+    ex0 = dict(mesh.exchange.stats)
+    t0 = time.perf_counter()
+    results = engine.run([Request(e.key, q) for q in workload])
+    wall = time.perf_counter() - t0
+    stats = summarize_latencies(results)
+    top = next(r.value for r in results if isinstance(r.query, TopKSeeds) and not r.cache_hit)
+    out["a"] = dict(wall_s=wall, qps=len(results) / wall, p50_ms=stats["p50_ms"],
+                    p99_ms=stats["p99_ms"], by_backend=stats["by_backend"],
+                    cache_hits=stats["cache_hits"], answers=[_exact(r) for r in results],
+                    exchange=mesh.exchange.summary(since=ex0))
+    out["b"] = dict(seeds=top.seeds.tolist(), rebuilds=top.rebuilds.tolist(),
+                    stats={k: v for k, v in top.stats.items()})
+
+    # (d) the async engine on the placed entry (the same engine: its top-k memo holds)
+    t0 = time.perf_counter()
+    with AsyncInfluenceEngine(engine, deadline_ms=50) as aeng:
+        futures = [aeng.submit(e.key, q) for q in workload]
+        aeng.drain()
+        got = _results(futures, "11d")
+        admission = aeng.admission_summary()
+    out["d"] = dict(wall_s=time.perf_counter() - t0, answers=[_exact(r) for r in got],
+                    e2e_p99_ms=admission["e2e_p99_ms"], misses=admission["deadline_misses"],
+                    flushes=admission["flushes"])
+
+    # (c) phase 6's delta through the mesh repair, against the serial one at this plan
+    ex0 = dict(mesh.exchange.stats)
+    rec = trace.get_recorder()
+    pairs: list = []
+    rec.clear()
+    rec.start()
+    try:
+        with _timed_merges(pairs):
+            rep = apply_delta(store, e.key, inp["delta"], backend="auto")
+    finally:
+        rec.stop()
+    merges_s = _events_s(pairs)
+    spans = _span_sums(rec.events())
+    exchange = mesh.exchange.summary(since=ex0)
+    out["window"] = ctl.call(_op_launch_window, {"mesh": mesh.key, "do": "read"})
+    e = store.entry(e.key)
+    t0 = time.perf_counter()
+    repaired = e.matrix
+    gather_s = time.perf_counter() - t0
+    out["c"] = dict(rep=dict(rep.__dict__), serial=dict(rep_s.__dict__), residency=e.residency,
+                    equal_serial=bool(torch.equal(repaired, twin_m)),
+                    repaired=_digest(repaired.cpu().numpy()), merges_s=merges_s,
+                    gather_s=gather_s, serial_s=serial_s, spans=spans, exchange=exchange)
+    return out
+
+
+def phase_mesh_serving() -> dict:
+    """Phase 11: phase 6's index served device-resident on a serving mesh of
+    ranks that share the card (needs phase 6)."""
+    import shutil
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.launch import serve_im
+    from repro_torch.launch.mesh import spawn_world
+
+    check(bool(_SERVE), "phase 11 serves phase 6's index: run phase 6 first")
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_serving"
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    inp = dict(spec=_SERVE["spec"], delta=_SERVE["delta"])
+    t0 = time.perf_counter()
+    ranks = spawn_world(_serving_rank, SERVING["ranks"], workdir=work / "world",
+                        device="cuda", args=(_SERVE["graph"], inp), timeout_s=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"[11] serving world of {SERVING['ranks']} ranks sharing the card: "
+        f"{r0['describe']}; world {world_s:.1f}s (spawn, (a)-(d), teardown)")
+    check(r0["built"] == _digest(_SERVE["built"]), "11: the index differs from phase 6's")
+    check((r0["residency"], r0["serving"]) == ("device", "mesh:device"),
+          f"11: residency {r0['residency']}, serving {r0['serving']}")
+    log(f"[11] store get_or_build {r0['get_s']:.3f}s (the store key, the destination sort "
+        f"and the build, {r0['build_s']:.3f}s; equal to phase 6's), {SERVING['ranks']}-shard "
+        f"{SERVING['strategy']} plan {r0['plan_s']:.3f}s, placement {r0['place_s']:.3f}s: "
+        f"{SERVING['ranks']} row blocks x {r0['block_bytes']} B, device bytes "
+        f"{r0['device_bytes']}")
+    a = r0["a"]
+    check(a["answers"] == _SERVE["answers"], "11a: answers differ from phase 6's host answers")
+    check(set(a["by_backend"]) <= {"mesh:device", "memo"}, f"11a: backends {a['by_backend']}")
+    log(f"[11a] {SERVE['queries']} queries through the sync engine: {a['wall_s']:.4f}s "
+        f"({a['qps']:.1f} qps), p50 {a['p50_ms']:.4f} ms, p99 {a['p99_ms']:.4f} ms, by "
+        f"backend {a['by_backend']}, top-k cache hits {a['cache_hits']}; answers byte-equal "
+        f"to phase 6's host answers; controller exchanges: " + "; ".join(
+            f"{kind} {v['calls']} calls, {v['bytes_sent'] / 1e6:.3f} MB sent, "
+            f"{v['seconds']:.3f}s" for kind, v in a["exchange"].items()))
+    b = r0["b"]
+    st = b["stats"]
+    ring = st["exchange"].get("ring_shift", {})
+    log(f"[11b] warm top-{SERVE['topk']} off the placed blocks (the stream's first): seeds "
+        f"{b['seeds']}; partition {st['partition_s']:.3f}s (host, rank 0), rounds "
+        f"{st['rounds_s']:.3f}s, {st['cascade_sweeps']} cascade and {st['rebuild_sweeps']} "
+        f"rebuild sweeps; ring shifts {ring.get('calls', 0)}, "
+        f"{ring.get('bytes_sent', 0) / 1e9:.3f} GB sent, {ring.get('seconds', 0.0):.3f}s; "
+        "exchanges " + "; ".join(f"{kind} {v['calls']} calls, {v['seconds']:.3f}s"
+                                 for kind, v in st["exchange"].items()))
+    d = r0["d"]
+    check(d["answers"] == a["answers"], "11d: async answers differ from the sync engine's")
+    log(f"[11d] the async engine on the placed entry: {d['wall_s']:.3f}s, e2e p99 "
+        f"{d['e2e_p99_ms']:.2f} ms, {d['misses']} deadline misses, {d['flushes']} flushes; "
+        "answers equal (a)'s")
+    c = r0["c"]
+    rep, ser = c["rep"], c["serial"]
+    check(rep["repair_backend"] == "mesh" and not rep["rebuilt"] and c["residency"] == "device",
+          f"11c: report {rep}")
+    check(c["repaired"] == _digest(_SERVE["repaired"]),
+          "11c: the mesh repair differs from phase 6's repaired matrix")
+    check(c["equal_serial"], "11c: the mesh repair differs from the serial shard repair")
+    check((rep["repair_sweeps"], tuple(rep["shards_swept"]))
+          == (ser["repair_sweeps"], tuple(ser["shards_swept"])),
+          f"11c: sweeps/shards {rep['repair_sweeps']}/{rep['shards_swept']} differ from the "
+          f"serial repair's {ser['repair_sweeps']}/{ser['shards_swept']}")
+    spans = c["spans"]
+    log(f"[11c] phase 6's {SERVE['delta_edges']}-edge delta on the mesh: host "
+        f"{rep['time_s']:.3f}s, {rep['repair_sweeps']} sweeps, shards touched "
+        f"{rep['plan_shards_touched']}, swept {rep['shards_swept']}, banks touched "
+        f"{rep['banks_touched']}; rank 0's merges on the device {c['merges_s']:.4f}s; spans "
+        + ", ".join(f"{n} {t:.3f}s x{k}" for n, (k, t) in
+                    sorted(spans.items(), key=lambda i: -i[1][1])[:8])
+        + "; controller exchanges " + "; ".join(
+            f"{kind} {v['calls']} calls, {v['bytes_sent'] / 1e6:.3f} MB sent, "
+            f"{v['seconds']:.3f}s" for kind, v in c["exchange"].items())
+        + f"; gather {c['gather_s']:.3f}s; byte-equal to phase 6's repaired matrix and to "
+        f"the serial shard repair at this plan ({c['serial_s']:.3f}s, "
+        f"{ser['repair_sweeps']} sweeps, swept {ser['shards_swept']})")
+    launches, plain = Counter(), Counter()
+    for rank_launches, rank_plain in r0["window"]:
+        launches.update(rank_launches)
+        plain.update(rank_plain)
+    launches, plain = dict(launches), dict(plain)
+    log(f"[11] launches from placement to (c)'s mesh repair (all ranks; the store builds, "
+        f"the plan and the serial twin outside) {launches}; per rank "
+        + "; ".join(str(rl) for rl, _ in r0["window"]) + f"; plain calls {plain}; "
+        "max_memory_allocated "
+        + ", ".join(f"{rk['peak_bytes'] / 2**30:.2f}" for rk in ranks) + " GiB")
+    check(not plain, f"plain versions ran on the device-resident path: {plain}")
+    for r, (rank_launches, _) in enumerate(r0["window"]):
+        missing = [n for n in MESH_SERVE_KERNELS if rank_launches.get(n, 0) <= 0]
+        check(not missing, f"11: rank {r} did not launch {missing}")
+    stray = sorted(set(launches) - set(MESH_SERVE_KERNELS))
+    check(not stray, f"11: kernels off the device-resident path launched in its window: "
+          f"{stray}")
+
+    # (e) the launcher under torch.distributed.run, against a host-resident run
+    args = ["--graph", SERVING_LAUNCHER_GRAPH, "--setting", FULL["setting"], "--model",
+            FULL["model"], "--registers", str(SERVE["registers"]), "--queries",
+            str(SERVE["queries"]), "--topk", str(SERVE["topk"])]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(SERVING["ranks"]), "-m", "repro_torch", "serve", *args,
+           "--residency", "device", "--plan-shards", str(SERVING["ranks"]),
+           "--answers", str(work / "device.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=work, capture_output=True, text=True,
+                          timeout=MESH_TIMEOUT_S)
+    e_s = time.perf_counter() - t0
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "serving_launcher.log").write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    check(proc.returncode == 0, f"11e: the launcher failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        log(f"[11e] {ln}")
+    check(sum(ln.startswith("device-resident: ") and ln.endswith("(serving mesh:device)")
+              for ln in lines) == 1, "11e: no device-resident line from rank 0 alone")
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        host = serve_im.run(args + ["--residency", "host", "--answers",
+                                    str(work / "host.json")])
+    check(host["residency"] == "host", f"11e: host run residency {host['residency']}")
+    check(json.loads((work / "device.json").read_text())
+          == json.loads((work / "host.json").read_text()),
+          "11e: the device-resident launcher's answers differ from the host run's")
+    log(f"[11e] {SERVING['ranks']} ranks through torch.distributed.run at "
+        f"{SERVING_LAUNCHER_GRAPH}: {e_s:.1f}s with startup; its {SERVE['queries']} answers "
+        f"equal a host-resident run's ({host['qps']:.1f} qps there)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[11] phase {phase_s:.1f}s")
+    shutil.rmtree(work, ignore_errors=True)
+    strip = ("answers", "spans", "window")
+    return dict(launches=launches, world_s=world_s, launcher_s=e_s, phase_s=phase_s,
+                peaks=[rk["peak_bytes"] for rk in ranks],
+                ranks0={t: ({kk: v for kk, v in r0[t].items() if kk not in strip}
+                            if isinstance(r0[t], dict) else r0[t])
+                        for t in ("a", "b", "c", "d")})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10,11")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2458,13 +2805,18 @@ def main(argv=None) -> int:
     if mesh:
         for row in rows:   # and on the mesh's path, summed over its ranks
             row["launches_mesh"] = int(mesh["launches"].get(row["name"], 0))
+    mesh_serve = phase_mesh_serving() if "11" in phases else None
+    if mesh_serve:
+        for row in rows:   # and on the device-resident path, summed over its ranks
+            row["launches_mesh_serve"] = int(mesh_serve["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
         serial_out = {k: v for k, v in (serial or {}).items() if k != "partition"}
         (OUT / "kernels.json").write_text(json.dumps(
             dict(rows=rows, full=full, serial=serial_out, serve=serve,
-                 served_async=served_async, repair=repair, tuning=tuning, mesh=mesh, smi=smi),
+                 served_async=served_async, repair=repair, tuning=tuning, mesh=mesh,
+                 mesh_serve=mesh_serve, smi=smi),
             indent=1,
             default=str))
         print(json.dumps({"kernels": rows}))

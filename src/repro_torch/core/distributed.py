@@ -39,6 +39,28 @@ deterministic sample sets, plan and buckets on every rank) and keeps the
 buckets of its own ``(v, s)``; the others shrink to shape-only ``meta``
 tensors, so the partition's stats stay whole.
 
+Device-resident serving runs two more mesh programs on a ``(mu_v, 1)``
+serving mesh whose ranks hold their plan-order row block of a placed store
+entry (``service.store.StoreEntry.place_on_mesh``):
+
+* ``find_seeds_warm_distributed``: the K seed rounds straight off the
+  placed block (no fill, no build fixpoint; a rebuild during the rounds
+  still refills from the fill of the rank's rows), in a ``mesh.warm_rounds``
+  span, ``propagate_iters=0``;
+* ``repair_plan_shards_distributed``: the shard-restricted insertion
+  repair, in a ``mesh.repair`` span. A sweep merges ring step kk's bucket
+  only where the block's owner ``(v + kk) % mu_v`` is dirty; its changed
+  flag is OR-ed over the sim group and all-gathered over the vertex group
+  into the next sweep's dirty vector; it stops when nothing is dirty or at
+  ``max_propagate_iters``. The new block stays on its rank.
+
+Both take their rank's buckets of ``_partition_for_plan`` (the whole
+partition built on each rank, the costly host step); the serving world's
+operations (the ``_op_*`` bodies at the end of this module) cache it on
+each rank against the content of the entry's version (its graph's
+fingerprint, the plan, x and the setting), as the reference caches it
+against the version.
+
 Two behaviours follow the reference's mesh and not its serial ring:
 
 * the selection sums ``2^-M`` (``cardinality_stats``) for both estimators,
@@ -48,6 +70,7 @@ Two behaviours follow the reference's mesh and not its serial ring:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Optional
 
@@ -63,6 +86,7 @@ from repro_torch.device import synchronize
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.obs import shardprof, trace
 from repro_torch.partition.builder import Partition2D
 from repro_torch.partition.serial import (_partial_scratch, _prepare, _RingState,
@@ -117,7 +141,13 @@ class _RankState:
     (bank b of a split sample space)."""
 
     def __init__(self, part: Partition2D, g: Graph, cfg: DistributedConfig, mesh, *,
-                 reg_offset: int = 0):
+                 reg_offset: int = 0, rows=None, block: Optional[torch.Tensor] = None,
+                 fill: bool = True):
+        """``rows``: this rank's ``(p_rows, c_rows)`` work lists, cut already
+        (``_rank_partition``); else cut here from ``part``. ``block``: this
+        rank's ``(n_loc, j_loc)`` registers to start from (a warm start or a
+        repair), copied, so the caller's tensor is never written; else the
+        fill. ``fill=False`` skips the fill (``refill`` then refuses)."""
         self.part, self.cfg, self.mesh = part, cfg, mesh
         self.variant = resolve_model(cfg.model).variant
         v, s = mesh.coord
@@ -127,20 +157,29 @@ class _RankState:
         self.valid = self.owned < g.n
         self.x = pad_x(torch.from_numpy(np.ascontiguousarray(
             part.x_shards[s], dtype=np.uint32).view(np.int32)).to(dev), j_loc)
-        self.p_rows = _shard_rows(part, [getattr(part, f) for f in _BUCKET_FIELDS[:5]],
-                                  part.p_counts, v, s)
-        self.c_rows = _shard_rows(part, [getattr(part, f) for f in _BUCKET_FIELDS[5:]],
-                                  part.c_counts, v, s)
+        if rows is None:
+            rows = _cut_rows(part, v, s)
+        self.p_rows, self.c_rows = rows
         self.partial = _partial_scratch(self.p_rows + self.c_rows, padded_regs(j_loc), dev)
         self.p_width = [int(a.shape[-1]) for a in part.p_h]
         self.c_width = [int(a.shape[-1]) for a in part.c_h]
-        # the rows this rank owns, filled at its sim shard's register slots
-        canon = ops.sketch_fill(blank_matrix(part.n_pad, j_loc, dev),
-                                reg_offset=reg_offset + s * j_loc, seed=cfg.seed)
-        self.fresh = canon.index_select(0, self.owned)
-        del canon
-        self.m = torch.where(self.valid[:, None], self.fresh,
-                             torch.full((), VISITED, dtype=torch.int8, device=dev))
+        self.fresh = None
+        if fill:
+            # the rows this rank owns, filled at its sim shard's register slots
+            canon = ops.sketch_fill(blank_matrix(part.n_pad, j_loc, dev),
+                                    reg_offset=reg_offset + s * j_loc, seed=cfg.seed)
+            self.fresh = canon.index_select(0, self.owned)
+            del canon
+        if block is not None:
+            if tuple(block.shape) != (part.n_loc, j_loc):
+                raise ValueError(f"block {tuple(block.shape)} is not "
+                                 f"{(part.n_loc, j_loc)}")
+            self.m = torch.full((part.n_loc, padded_regs(j_loc)), VISITED,
+                                dtype=torch.int8, device=dev)
+            self.m[:, :j_loc] = block
+        else:
+            self.m = torch.where(self.valid[:, None], self.fresh,
+                                 torch.full((), VISITED, dtype=torch.int8, device=dev))
         self.ring = [torch.empty_like(self.m), torch.empty_like(self.m)]
 
     # -- sweeps ------------------------------------------------------------
@@ -203,6 +242,35 @@ class _RankState:
         return self._changed(self._sweep(ops.bucket_cascade, self.c_rows, self.c_width,
                                          range(self.part.mu_v)))
 
+    def sweep_restricted(self, dirty) -> list:
+        """One ring sweep of propagate merges, step kk's applied only where
+        the block's owner ``(v + kk) % mu_v`` is dirty (the block moves on
+        either way, as the reference's ``ppermute`` does). Returns the next
+        sweep's dirty vector: each vertex shard's changed flag, OR-ed over
+        its sim group and all-gathered over the vertex group."""
+        mesh, part = self.mesh, self.part
+        mu_v, (v, s) = part.mu_v, mesh.coord
+        out = self.m.clone()
+        flags = []
+        block = self.m
+        for kk in range(mu_v):
+            if self.p_width[kk] and dirty[(v + kk) % mu_v]:
+                flags.append(ops.bucket_propagate(out, block, self.p_rows[kk], self.x,
+                                                  variant=self.variant,
+                                                  partial=self.partial))
+            if kk + 1 < mu_v:
+                block = mesh.exchange.ring_shift(
+                    block, self.ring[kk % 2], send_to=mesh.rank_of((v - 1) % mu_v, s),
+                    recv_from=mesh.rank_of((v + 1) % mu_v, s))
+        self.m = out
+        changed = int(torch.cat(flags).any().item()) if flags else 0
+        if part.mu_s > 1:
+            changed = mesh.exchange.all_reduce(changed, dist.ReduceOp.MAX, mesh.sim_group)
+        got = mesh.exchange.all_gather(torch.tensor([changed], dtype=torch.int8,
+                                                    device=self.device),
+                                       mesh.vertex_group, mu_v)
+        return [bool(f) for f in got.reshape(-1).tolist()]
+
     fixpoint = staticmethod(_RingState.fixpoint)
 
     # -- the round's steps ---------------------------------------------------
@@ -239,6 +307,8 @@ class _RankState:
                                              self.mesh.grid_group)
 
     def refill(self) -> None:
+        if self.fresh is None:
+            raise RuntimeError("refill() needs a state made with the fill")
         self.m = torch.where(self.m == VISITED, self.m, self.fresh)
 
     def gather_matrix(self, n_pad: int) -> torch.Tensor:
@@ -270,6 +340,60 @@ def _partition(g: Graph, x: np.ndarray, mesh, cfg: DistributedConfig, plan, stat
                     method="fasst" if cfg.fasst else "naive")
 
 
+def _cut_rows(part: Partition2D, v: int, s: int) -> tuple:
+    """The work lists of shard ``(v, s)``'s propagate and cascade buckets."""
+    return (_shard_rows(part, [getattr(part, f) for f in _BUCKET_FIELDS[:5]],
+                        part.p_counts, v, s),
+            _shard_rows(part, [getattr(part, f) for f in _BUCKET_FIELDS[5:]],
+                        part.c_counts, v, s))
+
+
+def _partition_for_plan(g: Graph, mesh, cfg: DistributedConfig, x: np.ndarray, plan,
+                        stats: Optional[dict] = None) -> Partition2D:
+    """The buckets of ``plan`` for ``mesh``'s shard grid (every rank builds
+    the whole partition, as ``_partition`` does)."""
+    if plan.mu_v != mesh.mu_v:
+        raise ValueError(f"plan has mu_v={plan.mu_v} but the mesh's {cfg.vertex_axis!r} "
+                         f"axis is {mesh.mu_v}-way")
+    return _partition(g, np.asarray(x, dtype=np.uint32), mesh, cfg, plan,
+                      {} if stats is None else stats)
+
+
+def _rank_partition(g: Graph, mesh, cfg: DistributedConfig, x: np.ndarray, plan) -> tuple:
+    """``(partition with shape-only buckets, this rank's work lists)`` of
+    ``_partition_for_plan``: what the warm rounds and the repair take."""
+    part = _partition_for_plan(g, mesh, cfg, x, plan)
+    rows = _cut_rows(part, *mesh.coord)
+    return _keep_own_buckets(part), rows
+
+
+def _rounds(st: _RankState, k: int, cfg: DistributedConfig, total_regs: int,
+            stats: dict) -> tuple:
+    """Alg. 4's K seed rounds on the rank state: ``(seeds, gains, scores,
+    rebuilds)``, the same on every rank; adds the sweep counts to ``stats``."""
+    f32 = np.float32
+    seeds = np.zeros(k, dtype=np.int32)
+    gains = np.zeros(k, dtype=f32)
+    scores = np.zeros(k, dtype=f32)
+    rebuilds = np.zeros(k, dtype=bool)
+    stats.update(cascade_sweeps=0, rebuild_sweeps=0)
+    oldscore = f32(0.0)
+    for i in range(k):
+        s_v, gain = st.select(total_regs)
+        st.commit(s_v)
+        stats["cascade_sweeps"] += st.fixpoint(st.sweep_cascade, cfg.max_cascade_iters)
+        new_score = f32(st.visited_count()) / f32(total_regs)
+        rel = (new_score - oldscore) / np.maximum(new_score, f32(1e-9))
+        do_rebuild = bool(rel > f32(cfg.rebuild_threshold))
+        if do_rebuild:
+            st.refill()
+            stats["rebuild_sweeps"] += st.fixpoint(st.sweep_propagate,
+                                                   cfg.max_propagate_iters)
+            oldscore = new_score
+        seeds[i], gains[i], scores[i], rebuilds[i] = s_v, gain, new_score, do_rebuild
+    return seeds, gains, scores, rebuilds
+
+
 def _find_seeds_distributed(g: Graph, k: int, mesh,
                             config: Optional[DistributedConfig] = None,
                             x: Optional[np.ndarray] = None, plan=None):
@@ -294,31 +418,12 @@ def _find_seeds_distributed(g: Graph, k: int, mesh,
     synchronize(dev)
     t1 = time.perf_counter()
     total_regs = part.mu_s * part.j_loc
-    f32 = np.float32
-    seeds = np.zeros(k, dtype=np.int32)
-    gains = np.zeros(k, dtype=f32)
-    scores = np.zeros(k, dtype=f32)
-    rebuilds = np.zeros(k, dtype=bool)
-    stats.update(cascade_sweeps=0, rebuild_sweeps=0)
     with trace.span("mesh.find_seeds", phase="select", k=k, mu_v=part.mu_v,
                     mu_s=part.mu_s, schedule=cfg.schedule) as sp:
         build_iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
         synchronize(dev)
         t2 = time.perf_counter()
-        oldscore = f32(0.0)
-        for i in range(k):
-            s_v, gain = st.select(total_regs)
-            st.commit(s_v)
-            stats["cascade_sweeps"] += st.fixpoint(st.sweep_cascade, cfg.max_cascade_iters)
-            new_score = f32(st.visited_count()) / f32(total_regs)
-            rel = (new_score - oldscore) / np.maximum(new_score, f32(1e-9))
-            do_rebuild = bool(rel > f32(cfg.rebuild_threshold))
-            if do_rebuild:
-                st.refill()
-                stats["rebuild_sweeps"] += st.fixpoint(st.sweep_propagate,
-                                                       cfg.max_propagate_iters)
-                oldscore = new_score
-            seeds[i], gains[i], scores[i], rebuilds[i] = s_v, gain, new_score, do_rebuild
+        seeds, gains, scores, rebuilds = _rounds(st, k, cfg, total_regs, stats)
         sp.sync(st.m)
     _publish_mesh_profile(part, phase="select", sweeps=build_iters,
                           wall_s=time.perf_counter() - t1, span=sp)
@@ -379,3 +484,108 @@ def build_matrix_distributed(g: Graph, mesh, config: Optional[DistributedConfig]
                           wall_s=time.perf_counter() - t0, span=sp)
     return m, iters, part
 
+
+
+# -- device-resident serving: warm rounds and the shard repair -------------------------
+
+def find_seeds_warm_distributed(g: Graph, k: int, mesh, config: Optional[DistributedConfig],
+                                planned_block: torch.Tensor, plan, x: np.ndarray, *,
+                                part: Optional[tuple] = None) -> InfluenceResult:
+    """Alg. 4's K seed rounds from this rank's block of an already-propagated
+    plan-order matrix (``planned_block``: rows ``[v * n_loc, (v + 1) *
+    n_loc)`` of ``StoreEntry.planned_matrix()``), on every rank of ``mesh``;
+    fill and the build fixpoint are skipped. The round program is the cold
+    one's, so the seeds equal ``find_seeds``'s on every backend. ``part``: a
+    ``_rank_partition`` of the same (graph, plan, x) made earlier (it is the
+    costly host step). ``result.stats`` holds the sweep counts, ``rounds_s``
+    and this rank's ``exchange`` summary; ``propagate_iters`` is 0."""
+    cfg = config or DistributedConfig()
+    x = np.asarray(x, dtype=np.uint32)
+    exchanged = dict(mesh.exchange.stats)
+    if part is None:
+        part = _rank_partition(g, mesh, cfg, x, plan)
+    part_meta, rows = part
+    stats: dict = {}
+    t0 = time.perf_counter()
+    with trace.span("mesh.warm_rounds", phase="select", k=k, mu_v=part_meta.mu_v,
+                    mu_s=part_meta.mu_s) as sp:
+        st = _RankState(part_meta, g, cfg, mesh, rows=rows, block=planned_block)
+        seeds, gains, scores, rebuilds = _rounds(st, k, cfg,
+                                                 part_meta.mu_s * part_meta.j_loc, stats)
+        sp.sync(st.m)
+    stats.update(rounds_s=time.perf_counter() - t0,
+                 exchange=mesh.exchange.summary(since=exchanged))
+    return InfluenceResult(seeds=seeds, est_gains=gains, scores=scores, rebuilds=rebuilds,
+                           propagate_iters=0, x=np.sort(x) if cfg.fasst else x, stats=stats)
+
+
+def repair_plan_shards_distributed(g: Graph, mesh, config: Optional[DistributedConfig],
+                                   x: np.ndarray, planned_block: torch.Tensor, plan, touched,
+                                   *, part: Optional[tuple] = None):
+    """The shard-restricted monotone insertion repair on ``mesh`` (the
+    ``mesh`` backend's twin of ``partition.serial.repair_plan_shards``), on
+    every rank with its block of the pre-delta plan-order matrix, a sound
+    lower bound of the fixpoint of ``g`` (the post-delta graph, sorted by
+    destination). ``touched``: the plan shards the delta's endpoints land
+    in. Returns ``(planned_block, sweeps, shards_swept)``, the new block a
+    new tensor on this rank, byte-equal to the rows of a full rebuild and of
+    the serial repair (a max-merge fixpoint above a sound lower bound is
+    unique), in a ``mesh.repair`` span."""
+    cfg = config or DistributedConfig()
+    x = np.asarray(x, dtype=np.uint32)
+    if part is None:
+        part = _rank_partition(g, mesh, cfg, x, plan)
+    part_meta, rows = part
+    mu_v = part_meta.mu_v
+    dirty = [False] * mu_v
+    for v in touched:
+        dirty[int(v)] = True
+    swept = [False] * mu_v
+    sweeps = 0
+    with trace.span("mesh.repair", phase="repair", touched=sum(dirty)) as sp:
+        st = _RankState(part_meta, g, cfg, mesh, rows=rows, block=planned_block, fill=False)
+        while any(dirty) and sweeps < cfg.max_propagate_iters:
+            swept = [a or b for a, b in zip(swept, dirty)]
+            dirty = st.sweep_restricted(dirty)
+            sweeps += 1
+        block = sp.sync(st.m[:, :part_meta.j_loc].contiguous())
+        sp.annotate(sweeps=sweeps, shards_swept=sum(swept))
+    return block, sweeps, tuple(v for v in range(mu_v) if swept[v])
+
+
+def _part_key(p: dict) -> tuple:
+    cfg = p["cfg"]
+    x_id = hashlib.blake2b(np.asarray(p["x"], dtype=np.uint32).tobytes(),
+                           digest_size=16).hexdigest()
+    return ("rank_partition", p["mesh"], p["graph"], p["plan"], x_id, cfg.seed, cfg.model,
+            cfg.fasst, cfg.pad_mode)
+
+
+def _cached_partition(state, p: dict, g: Graph, mesh, plan) -> tuple:
+    """The rank partition of the operation's (graph, plan, x, setting),
+    from the rank's cache; ``(part, host seconds, cache hit)``."""
+    key = _part_key(p)
+    hit = key in state.parts
+    t0 = time.perf_counter()
+    part = state.cached(key, lambda: _rank_partition(g, mesh, p["cfg"], p["x"], plan))
+    return part, time.perf_counter() - t0, hit
+
+
+def _op_warm_rounds(state, p, local):
+    mesh = launch_mesh.ProcessMesh.by_key(p["mesh"])
+    g, plan = state.graph(p["graph"]), state.plans[p["plan"]]
+    part, part_s, hit = _cached_partition(state, p, g, mesh, plan)
+    res = find_seeds_warm_distributed(g, p["k"], mesh, p["cfg"], state.blocks[p["hid"]],
+                                      plan, p["x"], part=part)
+    res.stats.update(partition_s=part_s, partition_cached=hit)
+    return res
+
+
+def _op_repair(state, p, local):
+    mesh = launch_mesh.ProcessMesh.by_key(p["mesh"])
+    g, plan = state.graph(p["graph"]), state.plans[p["plan"]]
+    part, _, _ = _cached_partition(state, p, g, mesh, plan)
+    block, sweeps, swept = repair_plan_shards_distributed(
+        g, mesh, p["cfg"], p["x"], state.blocks[p["hid"]], plan, p["touched"], part=part)
+    state.blocks[p["out"]] = block
+    return sweeps, swept

@@ -30,18 +30,69 @@ never changes after a failure:
   allocated once per shape.
 
 An NCCL or gloo error raises; nothing gives way to another transport.
-``make_production_mesh`` and ``make_serving_mesh`` are not ported yet.
+
+**The serving mesh** (device residency, ``service.store.StoreEntry.
+place_on_mesh``). ``make_serving_mesh(mu_v)`` is the reference's ``(mu_v,
+1)`` mesh: one plan-order row block a rank, the sample space whole on each.
+Where the reference runs each serving program as one ``shard_map`` from one
+controller, ``serve_world(fn, graphs=...)`` makes rank 0 the controller: it
+runs ``fn`` (the store, the engines, the launcher) while every other rank
+runs ``follow``, a loop that takes one operation record at a time from the
+controller (``broadcast_object_list`` over a gloo control group whose
+timeout is long, since a server may idle) and runs the same operation body
+on its own block. An operation is a module-level function
+``body(state, payload, local)``, and the record names it by reference (as
+pickle does), so a follower imports the body's module on first use and this
+module keeps no list of operations. The bodies live where their work
+does: placement, gather, bank comparison, mesh creation and graph sharing
+here; spread, marginal and probe in ``service/queries.py``; the warm rounds
+and the shard repair in ``core/distributed.py``; a backend's cold call in
+``service/world.py``.
+
+* ``Controller.call`` holds one lock for a whole operation, the record and
+  every collective of its body, so the async engine's serving and mutation
+  threads never interleave their collectives. Each operation ends in a
+  barrier of every rank (a finite timeout); a follower whose body raises
+  exits, its peers' collectives fail, and the controller raises, marks the
+  mesh failed and refuses further operations. Nothing is caught and
+  skipped.
+* Graphs reach the followers by content, never in the records of the hot
+  path: each follower holds the graphs it was started with (as the
+  launcher makes them, from the same seed) and their destination-sorted
+  forms, found by a content fingerprint; a delta travels as its
+  ``GraphDelta`` and every rank applies it at once (``Graph.apply_delta``,
+  deterministic; the ranks' fingerprints must agree). ``Controller.share_graph``
+  ships a whole graph only when some follower lacks it (a snapshot's graph,
+  say), once.
+* A ``Placement`` is the controller's handle of a placed plan-order
+  matrix: block v (rows ``[v * n_loc, (v + 1) * n_loc)``) lives on rank v.
+  Blocks, graphs and plans the controller no longer references are dropped
+  on every rank with the next operation (weak references).
+* ``make_mesh`` and the mesh backend are SPMD only: every rank calls them.
+  The controller makes a grid on every rank with ``Controller.make_mesh``
+  (``serving_mesh`` for the ``(mu_v, 1)`` one); the serving layer routes a
+  backend's cold call through the world itself (``service.world``).
+  ``make_mesh`` on a controller outside an operation raises, as it would
+  otherwise wait on followers that never join.
+
+``make_production_mesh`` belongs to the dry run, which is not ported yet.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
+import hashlib
+import itertools
 import math
 import os
+import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -50,6 +101,8 @@ from repro_torch.obs import trace
 
 #: seconds a collective may wait before the run fails
 DEFAULT_TIMEOUT_S = 300.0
+#: seconds a follower waits for the controller's next operation record
+FOLLOW_TIMEOUT_S = 7 * 24 * 3600.0
 
 
 def env_world() -> bool:
@@ -117,7 +170,10 @@ class Exchange:
     adds its calls, the bytes this rank sent and its host seconds (device
     copies included where staged; an NCCL call returns once queued) to
     ``stats``, and runs in a span (``mesh.ring_shift``, ``mesh.all_gather``,
-    ``mesh.all_reduce``; recorded where the trace recorder is on)."""
+    ``mesh.all_reduce``, ``mesh.all_reduce_max``, ``mesh.scatter``,
+    ``mesh.gather``; recorded where the trace recorder is on). The serving
+    kinds (the tensor MAX, the scatter and the gather of row blocks) stage
+    one-off shapes through unpinned host copies."""
 
     def __init__(self, transport: str, device: torch.device):
         self.transport, self.device = transport, device
@@ -191,6 +247,60 @@ class Exchange:
         self._count("all_reduce", 8, time.perf_counter() - t0)
         return out
 
+    def all_reduce_max(self, t: torch.Tensor, group) -> torch.Tensor:
+        """The elementwise MAX of every rank's ``t`` over ``group`` (the
+        reference's ``pmax``), as a new tensor on this rank's device."""
+        t0 = time.perf_counter()
+        nbytes = t.numel() * t.element_size()
+        with trace.span("mesh.all_reduce_max", phase="ring", bytes=nbytes):
+            buf = t.cpu() if self.staged else t.clone()
+            dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+            out = buf.to(self.device) if self.staged else buf
+        self._count("all_reduce_max", nbytes, time.perf_counter() - t0)
+        return out
+
+    def scatter(self, chunks, out: torch.Tensor, group, *, src: int = 0) -> torch.Tensor:
+        """Fill ``out`` with chunk i of rank ``src``'s ``chunks`` on the i-th
+        rank of ``group`` (``src`` is a global rank; ``chunks`` is None on
+        every other rank). The placement of row blocks."""
+        t0 = time.perf_counter()
+        size = dist.get_world_size(group)
+        sent = (sum(c.numel() * c.element_size() for c in chunks) - out.numel()
+                * out.element_size()) if chunks is not None else 0
+        with trace.span("mesh.scatter", phase="ring", bytes=sent, ranks=size):
+            if size == 1:
+                out.copy_(chunks[0])
+            elif self.staged:
+                recv = torch.empty(out.shape, dtype=out.dtype)
+                dist.scatter(recv, [c.cpu() for c in chunks] if chunks is not None else None,
+                             src=src, group=group)
+                out.copy_(recv)
+            else:
+                dist.scatter(out, [c.contiguous() for c in chunks]
+                             if chunks is not None else None, src=src, group=group)
+        self._count("scatter", sent, time.perf_counter() - t0)
+        return out
+
+    def gather(self, t: torch.Tensor, group, *, dst: int = 0) -> Optional[torch.Tensor]:
+        """``(size, *t.shape)``: every rank's ``t`` of ``group`` in group rank
+        order, on rank ``dst`` (a global rank); None on the others."""
+        t0 = time.perf_counter()
+        size = dist.get_world_size(group)
+        mine = dist.get_rank() == dst
+        nbytes = t.numel() * t.element_size()
+        with trace.span("mesh.gather", phase="ring", bytes=nbytes, ranks=size):
+            if size == 1:
+                out = t.unsqueeze(0).clone()
+            else:
+                send = t.cpu() if self.staged else t.contiguous()
+                host = (torch.empty((size, *t.shape), dtype=t.dtype, device=send.device)
+                        if mine else None)
+                dist.gather(send, list(host.unbind(0)) if mine else None, dst=dst,
+                            group=group)
+                out = host.to(self.device) if mine else None
+        self._count("gather", 0 if mine else nbytes, time.perf_counter() - t0)
+        return out
+
     def summary(self, since: Optional[dict] = None) -> dict:
         """``{kind: {"calls", "bytes_sent", "seconds"}}``, counted from the
         ``since`` copy of ``stats`` when one is given."""
@@ -218,6 +328,16 @@ class ProcessMesh:
     grid_group: object           # None: the whole world
     world_size: int
     devices: Tuple[str, ...]     # each grid rank's device, in rank order
+    key: tuple = ()              # (shape, axes, device kind): make_mesh's cache key
+
+    @staticmethod
+    def by_key(key: tuple) -> "ProcessMesh":
+        """The mesh this process made under ``key`` (an operation's payload
+        names a mesh by it); raises ``KeyError`` where it holds none."""
+        mesh = _MESHES.get(key)
+        if mesh is None:
+            raise KeyError(f"rank {dist.get_rank()} holds no mesh {key}")
+        return mesh
 
     @property
     def mu_v(self) -> int:
@@ -238,6 +358,12 @@ class ProcessMesh:
     def rank_of(self, v: int, s: int) -> int:
         return v * self.mu_s + s
 
+    def axis_size(self, name: str) -> int:
+        """The size of axis ``name`` (the reference's ``mesh.shape[name]``)."""
+        if name not in self.axis_names:
+            raise ValueError(f"mesh axes {self.axis_names} have no {name!r}")
+        return self.shape[self.axis_names.index(name)]
+
     def describe(self) -> str:
         """``world=… grid=…x… transport=… devices=…``."""
         return (f"world={self.world_size} grid={'x'.join(map(str, self.shape))} "
@@ -248,6 +374,14 @@ class ProcessMesh:
 _MESHES: dict = {}
 
 
+def _mesh_key(shape: Sequence[int], axes: Sequence[str], device) -> tuple:
+    shape, axes = tuple(int(d) for d in shape), tuple(axes)
+    if len(shape) != len(axes) or len(shape) < 2:
+        raise ValueError(f"mesh shape {shape} and axes {axes} must pair up, "
+                         "a vertex axis first")
+    return (shape, axes, resolve_device(device).type)
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None) -> ProcessMesh:
     """The ``shape`` grid over the first ``prod(shape)`` ranks of the
     initialized process group, on every rank of it (``new_group`` is
@@ -255,28 +389,38 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None) -> Proc
     sim axes flatten row-major. Made once per process for each (shape,
     axes, device) and reused. Raises when no group is initialized, when the
     world is smaller than the grid, when this rank lies outside the grid,
-    or when the group's backend cannot serve this placement."""
-    shape, axes = tuple(int(d) for d in shape), tuple(axes)
-    if len(shape) != len(axes) or len(shape) < 2:
-        raise ValueError(f"mesh shape {shape} and axes {axes} must pair up, "
-                         "a vertex axis first")
+    or when the group's backend cannot serve this placement, and on the
+    controller of a serving world outside an operation (its followers wait
+    for records, not for ``new_group``: use ``Controller.make_mesh``)."""
+    key = _mesh_key(shape, axes, device)
+    if _MESHES.get(key) is not None:
+        return _MESHES[key]
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("no process group is initialized: run under torchrun or "
                            "call launch.mesh.init_world first")
-    dev_kind = resolve_device(device).type
-    key = (shape, axes, dev_kind)
+    if _CONTROLLER is not None and not _CONTROLLER.in_op():
+        raise RuntimeError("this process controls a serving world: make the mesh on "
+                           "every rank with Controller.make_mesh")
+    return _make_mesh(key)
+
+
+def _make_mesh(key: tuple, *, outside_ok: bool = False) -> Optional[ProcessMesh]:
+    """``make_mesh``'s collective body. With ``outside_ok`` a rank past the
+    grid takes part in making its groups and gets None (a serving world's
+    follower outside a smaller grid)."""
     if key in _MESHES:
         return _MESHES[key]
+    shape, axes, dev_kind = key
     world, rank = dist.get_world_size(), dist.get_rank()
     size = math.prod(shape)
     if world < size:
         raise ValueError(f"mesh {shape} needs {size} ranks, the world has {world}")
-    if rank >= size:
+    if rank >= size and not outside_ok:
         raise ValueError(f"rank {rank} lies outside the {shape} grid of the first "
                          f"{size} ranks; run one rank per shard")
     mu_v, mu_s = shape[0], math.prod(shape[1:])
     local_rank, _ = _local_placement()
-    dev = _rank_device(device, local_rank)
+    dev = _rank_device(dev_kind, local_rank)
     backend = dist.get_backend()
     if dev.type == "cpu":
         if backend != "gloo":
@@ -293,15 +437,28 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None) -> Proc
     sim_groups = [dist.new_group([v * mu_s + s for s in range(mu_s)])
                   for v in range(mu_v)]
     grid_group = dist.new_group(list(range(size))) if world > size else None
+    if rank >= size:
+        _MESHES[key] = None
+        return None
     devices = [None] * size
     dist.all_gather_object(devices, str(dev), group=grid_group)
     v, s = divmod(rank, mu_s)
     mesh = ProcessMesh(shape=shape, axis_names=axes, rank=rank, coord=(v, s),
                        device=dev, exchange=Exchange(transport, dev),
                        vertex_group=vertex_groups[s], sim_group=sim_groups[v],
-                       grid_group=grid_group, world_size=world, devices=tuple(devices))
+                       grid_group=grid_group, world_size=world, devices=tuple(devices),
+                       key=key)
     _MESHES[key] = mesh
     return mesh
+
+
+def make_serving_mesh(mu_v: int, *, vertex_axis: str = "data", sim_axis: str = "model",
+                      device=None) -> ProcessMesh:
+    """The ``(mu_v, 1)`` mesh of device-resident serving: ``mu_v`` plan-order
+    row blocks, one a rank, the sample space whole on each (a store splits
+    it into banks, not mesh columns). SPMD, as ``make_mesh``; a serving
+    world's controller uses ``Controller.serving_mesh``."""
+    return make_mesh((mu_v, 1), (vertex_axis, sim_axis), device=device)
 
 
 def make_im_mesh(devices: int, *, mu_v: int = 0, device=None) -> ProcessMesh:
@@ -318,6 +475,7 @@ def make_im_mesh(devices: int, *, mu_v: int = 0, device=None) -> ProcessMesh:
 def shutdown_world() -> None:
     """Leave the process group and forget the meshes made on it."""
     _MESHES.clear()
+    _SERVING_GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -351,3 +509,436 @@ def spawn_world(fn: Callable, nprocs: int, *, workdir, device=None, args: tuple 
     mp.spawn(_world_entry, args=(fn, nprocs, str(workdir), device, timeout_s, args),
              nprocs=nprocs, join=True)
     return [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(nprocs)]
+
+
+# -- the serving world: one controller, followers ---------------------------------------
+
+_SERVING_GROUPS: dict = {}     # "control" (long timeout), "done": gloo groups of the world
+_CONTROLLER: Optional["Controller"] = None
+
+
+def graph_fingerprint(g) -> str:
+    """A content fingerprint of a graph (its sizes and edge arrays), kept on
+    the object: how a follower finds the graph an operation names."""
+    fp = getattr(g, "_serving_fp", None)
+    if fp is None:
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.asarray([g.n, g.n_pad, g.m_real], dtype=np.int64).tobytes())
+        for a in (g.src, g.dst, g.weight):
+            a = np.ascontiguousarray(a)
+            h.update(str(a.dtype).encode())
+            h.update(a.data)
+        fp = h.hexdigest()
+        object.__setattr__(g, "_serving_fp", fp)
+    return fp
+
+
+class ServingState:
+    """One rank's serving state: graphs by fingerprint (the start graphs
+    and their destination-sorted forms are pinned; the controller holds its
+    graphs weakly, its callers own them), placed blocks by handle, plans by
+    id, and a small cache of rank partitions (``cached``)."""
+
+    def __init__(self, graphs=(), *, controller: bool = False):
+        self.graphs = weakref.WeakValueDictionary() if controller else {}
+        self.pinned: set = set()
+        self._unsorted = list(graphs)
+        for g in graphs:
+            fp = graph_fingerprint(g)
+            self.graphs[fp] = g
+            self.pinned.add(fp)
+        self.blocks: dict = {}
+        self.plans: dict = {}
+        self.parts: collections.OrderedDict = collections.OrderedDict()
+
+    def graph(self, fp: str):
+        g = self.graphs.get(fp)
+        while g is None and self._unsorted:   # the sorted form of a start graph
+            s = self._unsorted.pop().sorted_by_dst()
+            sfp = graph_fingerprint(s)
+            self.graphs[sfp] = s
+            self.pinned.add(sfp)
+            g = self.graphs.get(fp)
+        if g is None:
+            raise KeyError(f"rank {dist.get_rank()} holds no graph {fp}")
+        return g
+
+    def has_graph(self, fp: str) -> bool:
+        try:
+            self.graph(fp)
+        except KeyError:
+            return False
+        return True
+
+    def cached(self, key, make, size: int = 2):
+        """``make()``'s value for ``key``, kept for the ``size`` latest keys."""
+        if key in self.parts:
+            self.parts.move_to_end(key)
+            return self.parts[key]
+        out = self.parts[key] = make()
+        while len(self.parts) > size:
+            self.parts.popitem(last=False)
+        return out
+
+    def drop(self, kind: str, key) -> None:
+        if kind == "block":
+            self.blocks.pop(key, None)
+        elif kind == "plan":
+            self.plans.pop(key, None)
+        elif kind == "graph" and key not in self.pinned:
+            self.graphs.pop(key, None)
+            for k in [k for k in self.parts if key in k]:
+                del self.parts[k]
+
+
+def _done() -> None:
+    """Every rank reports its operation done (a finite timeout)."""
+    dist.all_reduce(torch.zeros(1, dtype=torch.int64), group=_SERVING_GROUPS["done"])
+
+
+def _run_op(state: ServingState, op: Callable, payload, local):
+    """Run ``op(state, payload, local)`` on this rank (``local``: the
+    controller's own argument, None on the followers), then report done. A
+    payload dict with a ``"mesh"`` key runs only on that mesh's ranks."""
+    out = None
+    key = payload.get("mesh") if isinstance(payload, dict) else None
+    if key is None or _MESHES.get(key) is not None:
+        out = op(state, payload, local)
+    _done()
+    return out
+
+
+_CONTROLLERS = itertools.count(1)
+
+
+class Controller:
+    """Rank 0 of a serving world (module doc). ``call(op, payload, local)``
+    runs the operation body ``op`` (a module-level function) on every rank
+    under the lock and returns the controller's result."""
+
+    def __init__(self, state: ServingState):
+        self.state = state
+        self.serial = next(_CONTROLLERS)
+        self.lock = threading.RLock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        # (kind, key) of what the controller let go of: appended by weak
+        # reference callbacks (any thread), read under the lock by ``call``
+        self._released: collections.deque = collections.deque()
+        self._known: set = set()        # graph fingerprints every rank holds
+        self._graph_refs: dict = {}     # fingerprint -> live shared graph objects
+        self.stopped = False
+        self.failed: Optional[str] = None
+
+    def in_op(self) -> bool:
+        return getattr(self._local, "depth", 0) > 0
+
+    def call(self, op: Callable, payload=None, local=None):
+        name = f"{op.__module__}.{op.__qualname__}"
+        with self.lock:
+            if self.stopped:
+                raise RuntimeError(f"the serving mesh has stopped: {name} cannot run "
+                                   "(a device-resident entry lives only as long as "
+                                   "its serving world)")
+            if self.failed is not None:
+                raise RuntimeError(f"the serving mesh failed in {self.failed}; "
+                                   f"{name} cannot run")
+            drops = self._take_drops()
+            self._local.depth = getattr(self._local, "depth", 0) + 1
+            try:
+                dist.broadcast_object_list([(op, payload, drops)], src=0,
+                                           group=_SERVING_GROUPS["control"])
+                for kind, key in drops:
+                    self.state.drop(kind, key)
+                return _run_op(self.state, op, payload, local)
+            except BaseException as e:
+                self.failed = f"{name} ({type(e).__name__}: {e})"
+                raise
+            finally:
+                self._local.depth -= 1
+
+    def _take_drops(self) -> list:
+        """What every rank drops with the next operation: released blocks and
+        plans, and graphs no live object of the controller shares any more."""
+        out = []
+        while self._released:
+            kind, key = self._released.popleft()
+            if kind == "graph":
+                self._graph_refs[key] -= 1
+                if self._graph_refs[key]:
+                    continue
+                del self._graph_refs[key]
+                self._known.discard(key)
+            out.append((kind, key))
+        return out
+
+    def new_id(self) -> int:
+        return next(self._ids)
+
+    def release(self, kind: str, key) -> None:
+        """Drop ``key`` on every rank with the next operation (a weak
+        reference's callback: any thread, any time)."""
+        self._released.append((kind, key))
+
+    def _track_graph(self, g, fp: str) -> None:
+        if getattr(g, "_serving_tracked", None) == self.serial:
+            return
+        object.__setattr__(g, "_serving_tracked", self.serial)
+        self._graph_refs[fp] = self._graph_refs.get(fp, 0) + 1
+        weakref.finalize(g, self.release, "graph", fp)
+
+    def share_graph(self, g) -> str:
+        """``g``'s fingerprint, once every rank holds ``g`` (shipping it to
+        the followers that lack it)."""
+        fp = graph_fingerprint(g)
+        with self.lock:
+            self._track_graph(g, fp)
+            self.state.graphs[fp] = g      # held weakly: this object is the live one
+            if fp not in self._known:
+                self.call(_op_graph_ensure, fp, local=g)
+                self._known.add(fp)
+        return fp
+
+    def apply_delta(self, base, delta):
+        """``base.apply_delta(delta).sorted_by_dst()``, the store's new graph,
+        made by every rank at once from its own copy of ``base`` (the delta
+        travels, the graph does not); the ranks check that their results'
+        fingerprints agree. Returns the controller's."""
+        with self.lock:
+            new = self.call(_op_graph_delta, (self.share_graph(base), delta))
+            self._track_graph(new, graph_fingerprint(new))
+            self._known.add(graph_fingerprint(new))
+        return new
+
+    def share_plan(self, plan) -> int:
+        """The id every rank knows ``plan`` by (sent once)."""
+        with self.lock:
+            tag = getattr(plan, "_serving_pid", None)
+            if tag is not None and tag[0] == self.serial:
+                return tag[1]
+            pid = self.new_id()
+            self.call(_op_plan, (pid, plan))
+            object.__setattr__(plan, "_serving_pid", (self.serial, pid))
+            weakref.finalize(plan, self.release, "plan", pid)
+        return pid
+
+    def make_mesh(self, shape: Sequence[int], axes: Sequence[str], *,
+                  device=None) -> ProcessMesh:
+        """``make_mesh(shape, axes)`` on every rank of the world (ranks past
+        the grid take part in making its groups); the controller's view."""
+        key = _mesh_key(shape, axes, device)
+        if _MESHES.get(key) is not None:
+            return _MESHES[key]
+        return self.call(_op_make_mesh, key)
+
+    def serving_mesh(self, mu_v: int, *, vertex_axis: str = "data",
+                     sim_axis: str = "model", device=None) -> ProcessMesh:
+        """``make_serving_mesh`` on every rank of the world."""
+        return self.make_mesh((mu_v, 1), (vertex_axis, sim_axis), device=device)
+
+    def stop(self) -> None:
+        """End the followers' loops (not after a failed operation: its
+        collectives are broken, and the followers fail on their own)."""
+        with self.lock:
+            if not self.stopped and self.failed is None:
+                self.call(_op_stop)
+            self.stopped = True
+
+
+def current_controller() -> Optional[Controller]:
+    """The controller of the serving world this process runs (rank 0 of
+    ``serve_world``), else None."""
+    return _CONTROLLER
+
+
+def require_controller() -> Controller:
+    """``current_controller()``, or a raise naming why there is none."""
+    if _CONTROLLER is None:
+        raise RuntimeError("device residency runs on a serving world: rank 0 of "
+                           "launch.mesh.serve_world (or serve under torchrun) controls "
+                           "the mesh, the other ranks follow")
+    return _CONTROLLER
+
+
+def controller_of(mesh: ProcessMesh) -> Controller:
+    """The controller that serves ``mesh``, or a raise naming why none does."""
+    ctl = require_controller()
+    if _MESHES.get(mesh.key) is not mesh or mesh.rank != 0:
+        raise ValueError(f"mesh {mesh.describe()} is not one this controller made")
+    return ctl
+
+
+def _serving_groups() -> None:
+    """The control group (its timeout lets a server idle) and the done
+    group, both gloo over the whole world; collective, once a world."""
+    if not _SERVING_GROUPS:
+        _SERVING_GROUPS["control"] = dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=FOLLOW_TIMEOUT_S))
+        _SERVING_GROUPS["done"] = dist.new_group(backend="gloo")
+
+
+def follow(graphs=()) -> int:
+    """A follower's loop: run each operation the controller sends, on this
+    rank's blocks, until it sends ``stop``. ``graphs`` are the graphs this
+    rank was started with (the controller's, made the same way). Returns
+    the number of operations run. A body that raises ends the loop with
+    the raise, which fails the controller's next collective."""
+    _serving_groups()
+    state = ServingState(graphs)
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=_SERVING_GROUPS["control"])
+        op, payload, drops = box[0]
+        for kind, key in drops:
+            state.drop(kind, key)
+        if op is _op_stop:
+            _done()
+            return n
+        _run_op(state, op, payload, None)
+        n += 1
+
+
+def serve_world(fn: Callable, *, graphs=()):
+    """Run a serving world on every rank of the initialized process group:
+    rank 0 becomes the controller and returns ``fn()``; every other rank
+    follows (``follow(graphs)``) until rank 0 is done and returns None.
+    The followers stop when ``fn`` returns or raises (unless an operation
+    failed, whose collectives are broken)."""
+    global _CONTROLLER
+    if not dist.is_initialized():
+        raise RuntimeError("a serving world needs an initialized process group "
+                           "(torchrun, or launch.mesh.init_world)")
+    if dist.get_rank() != 0:
+        follow(graphs)
+        return None
+    if _CONTROLLER is not None:
+        raise RuntimeError("this process already controls a serving world")
+    _serving_groups()
+    ctl = _CONTROLLER = Controller(ServingState(graphs, controller=True))
+    try:
+        return fn()
+    finally:
+        try:
+            ctl.stop()
+        finally:
+            _CONTROLLER = None
+
+
+def _op_stop(state, payload, local):
+    return None
+
+
+def _op_make_mesh(state, key, local):
+    return _make_mesh(key, outside_ok=True)
+
+
+def _op_plan(state, payload, local):
+    pid, plan = payload
+    state.plans[pid] = plan
+
+
+def _op_graph_ensure(state, fp, local):
+    if local is not None:
+        state.graphs[fp] = local
+    lacking = torch.tensor([0 if state.has_graph(fp) else 1], dtype=torch.int64)
+    dist.all_reduce(lacking, group=_SERVING_GROUPS["done"])
+    if lacking.item():
+        box = [local]
+        dist.broadcast_object_list(box, src=0, group=_SERVING_GROUPS["done"])
+        if not state.has_graph(fp):
+            if graph_fingerprint(box[0]) != fp:
+                raise ValueError(f"the graph shipped as {fp} does not match it")
+            state.graphs[fp] = box[0]
+
+
+def _op_graph_delta(state, payload, local):
+    base_fp, delta = payload
+    new = state.graph(base_fp).apply_delta(delta).sorted_by_dst()
+    fp = graph_fingerprint(new)
+    fps = [None] * dist.get_world_size()
+    dist.all_gather_object(fps, fp, group=_SERVING_GROUPS["done"])
+    if len(set(fps)) != 1:
+        raise ValueError(f"the ranks' graphs after the delta differ: {fps}")
+    state.graphs[fp] = new
+    return new
+
+
+# -- placed row blocks --------------------------------------------------------------------
+
+class Placement:
+    """The controller's handle of a plan-order matrix placed on a serving
+    mesh: block v (rows ``[v * n_loc, (v + 1) * n_loc)``, all ``cols``
+    columns) lives on the mesh's rank v, ``local`` is the controller's own.
+    ``shape``/``numel``/``device`` describe the whole matrix, as the
+    reference's sharded array does; ``gather`` brings it to the controller."""
+
+    def __init__(self, ctl: Controller, mesh: ProcessMesh, hid: int, n_loc: int,
+                 local: torch.Tensor):
+        self.ctl, self.mesh, self.hid, self.n_loc = ctl, mesh, hid, n_loc
+        self.local = local
+        self.shape = (mesh.mu_v * n_loc, int(local.shape[1]))
+        self.dtype = local.dtype
+        self.device = local.device
+        weakref.finalize(self, ctl.release, "block", hid)
+
+    def numel(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return self.numel() * self.local.element_size()
+
+    def gather(self) -> torch.Tensor:
+        """The whole plan-order matrix on the controller's device."""
+        return self.ctl.call(_op_gather, {"mesh": self.mesh.key, "hid": self.hid})
+
+    def changed_columns(self, other: "Placement", splits: int) -> list:
+        """For each of ``splits`` equal column blocks (banks), whether it
+        differs between the two placements."""
+        return self.ctl.call(_op_changed, {"mesh": self.mesh.key, "a": self.hid,
+                                              "b": other.hid, "splits": int(splits)})
+
+
+def place_rows(mesh: ProcessMesh, pm: torch.Tensor, n_loc: int) -> Placement:
+    """Scatter the controller's plan-order matrix ``pm`` (``mu_v * n_loc``
+    rows) as row blocks over ``mesh``'s vertex axis."""
+    ctl = controller_of(mesh)
+    if pm.shape[0] != mesh.mu_v * n_loc or mesh.mu_s != 1:
+        raise ValueError(f"a {tuple(pm.shape)} matrix does not split into {mesh.mu_v} "
+                         f"row blocks of {n_loc} on a {mesh.shape} mesh")
+    hid = ctl.new_id()
+    blk = ctl.call(_op_place, {"mesh": mesh.key, "hid": hid, "n_loc": int(n_loc),
+                                  "cols": int(pm.shape[1])}, local=pm.contiguous())
+    return Placement(ctl, mesh, hid, n_loc, blk)
+
+
+def adopt_block(mesh: ProcessMesh, hid: int, n_loc: int) -> Placement:
+    """The handle of a block that an operation stored under ``hid`` on every
+    rank of ``mesh`` (the shard repair's output)."""
+    ctl = controller_of(mesh)
+    return Placement(ctl, mesh, hid, n_loc, ctl.state.blocks[hid])
+
+
+def _op_place(state, p, local):
+    mesh = ProcessMesh.by_key(p["mesh"])
+    out = torch.empty((p["n_loc"], p["cols"]), dtype=torch.int8, device=mesh.device)
+    chunks = list(local.split(p["n_loc"])) if local is not None else None
+    state.blocks[p["hid"]] = mesh.exchange.scatter(chunks, out, mesh.vertex_group, src=0)
+    return state.blocks[p["hid"]]
+
+
+def _op_gather(state, p, local):
+    mesh = ProcessMesh.by_key(p["mesh"])
+    blk = state.blocks[p["hid"]]
+    out = mesh.exchange.gather(blk, mesh.vertex_group, dst=0)
+    return None if out is None else out.reshape(-1, blk.shape[1])
+
+
+def _op_changed(state, p, local):
+    mesh = ProcessMesh.by_key(p["mesh"])
+    a, b = state.blocks[p["a"]], state.blocks[p["b"]]
+    flags = torch.stack([(x != y).any() for x, y in
+                         zip(a.chunk(p["splits"], dim=1), b.chunk(p["splits"], dim=1))])
+    flags = mesh.exchange.all_reduce_max(flags.to(torch.int8), mesh.vertex_group)
+    return [bool(f) for f in flags.tolist()]

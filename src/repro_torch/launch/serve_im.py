@@ -9,8 +9,23 @@ choice, pushes a mixed stream of TopKSeeds / SpreadEstimate / MarginalGain /
 CoverageProbe requests through the batched ``InfluenceEngine``, and reports
 qps, p50/p99 and the amortized cost of a query against the cold
 ``find_seeds``. The printed lines and the returned keys are the reference
-launcher's (``src/repro/launch/serve_im.py``), without its device-residency
-and mesh ones, which the port does not have yet.
+launcher's (``src/repro/launch/serve_im.py``).
+
+``--residency device`` (or ``--backend mesh``, whose ``auto`` residency is
+the device) serves from plan-order row blocks placed on a serving mesh of
+``--plan-shards`` ranks, with shard-local query reductions, and prints the
+``device-resident: …`` line; the spec then takes ``mu_v=--plan-shards``.
+It runs under torchrun::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch serve --graph rmat:12 --residency device --plan-shards 2
+
+Every rank makes the graph; rank 0 is the serving world's controller
+(``launch.mesh.serve_world``), serves and prints, and the other ranks follow
+its operations until it stops them. Without a process group ``--residency
+device`` raises ``BackendUnavailable`` with the reason: the launcher never
+serves host-order in its place. ``--answers OUT.json`` writes each query's
+answer (floats exactly, as JSON), so two runs' answers can be compared.
 
 ``--async`` serves the stream through the ``AsyncInfluenceEngine`` (futures,
 deadline-driven micro-batching with a flush window of ``--deadline-ms`` / 4,
@@ -24,6 +39,7 @@ answers are those of ``--tuning off``.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -67,7 +83,13 @@ def run(argv=None, *, return_session: bool = False):
                          "for the default 'block' (any other --partition attaches "
                          "one); deltas then report the plan shards they touch")
     ap.add_argument("--plan-shards", type=int, default=8,
-                    help="vertex shards of the attached plan")
+                    help="vertex shards of the attached plan (and the row blocks of a "
+                         "device-resident placement)")
+    ap.add_argument("--residency", default="auto", choices=["auto", "host", "device"],
+                    help="where the index banks live for serving: 'device' places "
+                         "plan-order row blocks on a serving mesh (shard-local query "
+                         "reductions; under torchrun); 'auto' follows the resolved "
+                         "--backend (mesh -> device)")
     ap.add_argument("--queries", type=int, default=1000)
     ap.add_argument("--topk", type=int, default=10, help="k of the TopKSeeds queries")
     ap.add_argument("--max-batch", type=int, default=256)
@@ -83,20 +105,60 @@ def run(argv=None, *, return_session: bool = False):
                          "cross-entry stack) under --async "
                          "(0: none); cost-aware eviction keeps the store under it")
     ap.add_argument("--save", default="", help="write the index npz here")
+    ap.add_argument("--answers", default="", metavar="OUT.json",
+                    help="write each query's answer here (JSON, in stream order)")
     args = ap.parse_args(argv)
-    with observe(args):
-        out, sess, results = _run(args)
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as launch_mesh
+
+    joined = launch_mesh.env_world() and not dist.is_initialized()
+    if joined:
+        launch_mesh.init_world(device=args.device)
+    try:
+        if dist.is_initialized() and launch_mesh.current_controller() is None:
+            # a serving world: every rank makes the graph, rank 0 serves
+            g = make_graph(args.graph, args.setting, args.seed)
+            served = launch_mesh.serve_world(lambda: _observed(args, g), graphs=[g])
+            if served is None:
+                return None          # a follower, stopped by rank 0
+        else:
+            served = _observed(args, None)
+    finally:
+        if joined:
+            launch_mesh.shutdown_world()
+    out, sess, results = served
     return (out, sess, results) if return_session else out
 
 
-def _run(args):
+def _observed(args, g):
+    with observe(args):
+        return _run(args, g)
+
+
+def _answer(result):
+    """A query's answer as JSON values (a float32 is exact as a float)."""
+    v = result.value
+    if isinstance(v, dict):
+        return {"est": v["est"].tolist(), "max_register": v["max_register"].tolist()}
+    if hasattr(v, "seeds"):
+        return {f: np.asarray(getattr(v, f)).tolist()
+                for f in ("seeds", "est_gains", "scores", "rebuilds")}
+    return float(v)
+
+
+def _run(args, g=None):
     from repro_torch.partition import plan_partition
     from repro_torch.runtime import InfluenceSession, RunSpec
 
-    g = make_graph(args.graph, args.setting, args.seed)
+    if g is None:
+        g = make_graph(args.graph, args.setting, args.seed)
     print(f"graph n={g.n:,} m={g.m_real:,} model={args.model}")
+    # a sharded spec (mu_v = --plan-shards) only when the run wants the device
+    wants_device = args.backend == "mesh" or args.residency == "device"
     spec = RunSpec(num_registers=args.registers, seed=args.seed, model=args.model,
-                   backend=args.backend, mu_v=1, mu_s=1,
+                   backend=args.backend, residency=args.residency,
+                   mu_v=args.plan_shards if wants_device else 1, mu_s=1,
                    partition=args.partition if args.partition else "block",
                    serve_async=args.serve_async, deadline_ms=args.deadline_ms,
                    max_resident_mb=args.max_resident, tuning=args.tuning)
@@ -116,7 +178,13 @@ def _run(args):
     key = entry.key
     print(f"store build: {entry.build_time_s:.2f}s "
           f"({entry.num_banks} bank(s), {entry.build_iters} sweeps)")
-    if args.attach_plan or args.partition != "block":
+    if entry.residency == "device":
+        pm = entry.planned_matrix()
+        shard_bytes = pm.shape[0] // entry.plan.mu_v * pm.shape[1]
+        print(f"device-resident: {entry.plan.mu_v} row blocks x {shard_bytes} B on mesh "
+              f"{dict(zip(entry.mesh.axis_names, entry.mesh.shape))} "
+              f"(serving {entry.serving_backend})")
+    elif args.attach_plan or args.partition != "block":
         plan = plan_partition(entry.graph, args.plan_shards, mu_s=1, strategy=args.partition,
                               x=entry.x, seed=args.seed, model=args.model,
                               device=sess.device)
@@ -159,6 +227,9 @@ def _run(args):
     if args.save:
         store.save(args.save, key)
         print(f"index saved to {args.save}")
+    if args.answers:
+        with open(args.answers, "w") as f:
+            json.dump([_answer(r) for r in results], f)
     # stats first: its amortized qps (a memo hit costs 0 s) must not
     # overwrite the wall-clock qps printed above
     out = {**stats, "cold_s": cold_s, "build_s": entry.build_time_s, "wall_s": wall_s,

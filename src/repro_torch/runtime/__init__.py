@@ -13,7 +13,8 @@ per shard of a ``torch.distributed`` process mesh, ``launch/mesh.py``).
 a process group of enough ranks is initialized, else ``serial``. All run on
 CUDA unless ``device="cpu"`` is passed, and give the same seeds.
 ``InfluenceSession`` binds a graph to a spec and adds the resident path (the
-sketch store, warm seeds, deltas).
+sketch store, warm seeds, deltas); ``resolve_residency`` says whether its
+index is placed on the serving mesh (``RunSpec.residency``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from repro_torch.runtime import serial as _serial  # noqa: F401  (registers)
 from repro_torch.runtime import single as _single  # noqa: F401  (registers)
 from repro_torch.runtime.base import (Backend, BackendCapabilities, BackendUnavailable,
                                       RunReport, get_backend, register_backend,
-                                      resolve_backend)
+                                      resolve_backend, resolve_residency)
 from repro_torch.runtime.session import InfluenceSession
 from repro_torch.runtime.spec import RunSpec
 
@@ -43,4 +44,4 @@ def run(g, k: int, spec: Optional[RunSpec] = None, *, x=None, plan=None,
 
 __all__ = ["Backend", "BackendCapabilities", "BackendUnavailable", "InfluenceSession",
            "RunReport", "RunSpec", "get_backend", "register_backend", "resolve_backend",
-           "run"]
+           "resolve_residency", "run"]

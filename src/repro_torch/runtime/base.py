@@ -23,6 +23,11 @@ else ``serial``, which runs the same schedule on one device. An explicit
 name is honored and raises, with the reason, when that backend cannot run
 the spec.
 
+``resolve_residency`` implements ``RunSpec.residency="auto"`` as the
+reference does: an index's banks live on the mesh (device residency,
+``service.store.StoreEntry.place_on_mesh``) exactly when the resolved
+backend reports ``needs_mesh``.
+
 ``apply_tuning`` is the backends' tuning hook (``RunSpec.tuning``): the
 spec a backend runs carries the measured winners of ``repro_torch.tune``.
 """
@@ -63,6 +68,7 @@ class BackendCapabilities:
     distributed: bool        # shards work across a (mu_v, mu_s) grid
     description: str = ""
     shard_repair: bool = False   # can re-propagate individual plan shards
+    needs_mesh: bool = False     # runs on a process mesh (launch.mesh)
 
 
 @dataclasses.dataclass
@@ -167,3 +173,13 @@ def resolve_backend(spec: RunSpec, g: Optional[Graph] = None, *, mesh=None) -> B
             f"no backend can run this spec: mesh unavailable and the "
             f"serial fallback cannot either: {why}")
     return serial
+
+
+def resolve_residency(spec: RunSpec, backend: Backend) -> str:
+    """The ``residency="auto"`` rule: ``"device"`` (plan-order row blocks
+    placed on the serving mesh, queries reduced shard-locally) when
+    ``backend`` runs on a mesh (``needs_mesh``), else ``"host"``. An
+    explicit ``"host"`` or ``"device"`` is returned as it is."""
+    if spec.residency != "auto":
+        return spec.residency
+    return "device" if backend.capabilities().needs_mesh else "host"

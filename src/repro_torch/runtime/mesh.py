@@ -8,10 +8,17 @@ an initialized process group of at least ``mu_v * mu_s`` ranks; otherwise
 ``supports`` says no and ``auto`` takes the ``serial`` backend, which runs
 the same ring schedule on one device (the same seeds by contract).
 
-Not yet ported: the shard-restricted repair of device-resident banks
-(``repair_plan_shards``, the reference's ``shard_repair``), which waits for
-the mesh's serving and repair; until then ``capabilities().shard_repair``
-is False and the hook raises ``BackendUnavailable``.
+``repair_plan_shards`` is the shard-restricted repair of device-resident
+banks (``core.distributed.repair_plan_shards_distributed``): a device
+entry's placed matrix goes in and a new placement comes back, the blocks
+staying on their ranks; a plain tensor is repaired SPMD, every rank of the
+mesh calling with the same arguments and getting the whole matrix back.
+
+Every call is SPMD. On the controller of a serving world
+(``launch.mesh.serve_world``) the serving layer makes a cold call one
+operation of the world (``service.world.backend_call``), so every rank
+makes it; a placed matrix's repair runs through the placement's own
+controller.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch.distributed as dist
 from repro_torch.core.difuser import normalize_inputs
 from repro_torch.device import resolve_device
 from repro_torch.graphs.structs import Graph
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.runtime.base import (Backend, BackendCapabilities, BackendUnavailable,
                                       RunReport, apply_tuning, register_backend)
 from repro_torch.runtime.spec import RunSpec
@@ -34,8 +42,9 @@ class MeshBackend(Backend):
 
     def capabilities(self) -> BackendCapabilities:
         return BackendCapabilities(
-            name=self.name, distributed=True, shard_repair=False,
-            description="2-D runtime on a process mesh (ring/allgather schedules)")
+            name=self.name, distributed=True, needs_mesh=True, shard_repair=True,
+            description="2-D runtime on a process mesh (ring/allgather schedules; "
+                        "shard-restricted repair of device-resident banks)")
 
     def available(self):
         if not dist.is_available():
@@ -124,10 +133,44 @@ class MeshBackend(Backend):
         return m, iters
 
     def repair_plan_shards(self, g: Graph, spec: RunSpec, x: np.ndarray, planned_m, plan,
-                           touched):
-        raise BackendUnavailable(
-            "mesh backend: repair_plan_shards is not ported yet (it waits for the "
-            "mesh's serving and repair); the serial backend repairs plan shards")
+                           touched, *, mesh=None):
+        """The frontier-restricted re-propagation of the touched plan shards
+        (``core.distributed.repair_plan_shards_distributed``), byte-equal to
+        the serial repair and to a full rebuild. ``planned_m``: a device
+        entry's ``Placement`` (its mesh is the repair's; the result is a new
+        placement on it) or a plan-order tensor (every rank of ``mesh`` calls
+        with the same one, SPMD, and gets the repaired matrix). Without a
+        mesh a ``(plan.mu_v, 1)`` serving mesh is made. Returns
+        ``(planned_matrix, sweeps, shards_swept)``."""
+        ok, why = self.available()
+        if not ok:
+            raise BackendUnavailable(f"mesh backend: {why}")
+        if isinstance(planned_m, launch_mesh.Placement):
+            if mesh is not None and mesh is not planned_m.mesh:
+                raise ValueError("a placed matrix is repaired on the mesh it lives on")
+            mesh = planned_m.mesh
+        elif mesh is None:
+            mesh = launch_mesh.make_serving_mesh(plan.mu_v, vertex_axis=spec.vertex_axis,
+                                                 device=planned_m.device.type)
+        sim_axes = tuple(ax for ax in mesh.axis_names if ax != spec.vertex_axis)
+        cfg = spec.with_(vertex_axis=mesh.axis_names[0],
+                         sim_axes=sim_axes).distributed_config()
+        x = np.asarray(x, dtype=np.uint32)
+        from repro_torch.core import distributed as _dist
+
+        if isinstance(planned_m, launch_mesh.Placement):
+            ctl = planned_m.ctl
+            out = ctl.new_id()
+            sweeps, swept = ctl.call(_dist._op_repair, dict(
+                mesh=mesh.key, hid=planned_m.hid, out=out, graph=ctl.share_graph(g),
+                plan=ctl.share_plan(plan), x=x, cfg=cfg, touched=tuple(touched)))
+            return launch_mesh.adopt_block(mesh, out, plan.n_loc), sweeps, swept
+        v = mesh.coord[0]
+        n_loc = plan.n_loc
+        block, sweeps, swept = _dist.repair_plan_shards_distributed(
+            g, mesh, cfg, x, planned_m[v * n_loc:(v + 1) * n_loc], plan, touched)
+        blocks = mesh.exchange.all_gather(block, mesh.vertex_group, mesh.mu_v)
+        return blocks.reshape(-1, block.shape[1]), sweeps, swept
 
 
 register_backend(MeshBackend())

@@ -3,7 +3,8 @@
 ``item_warps``) choose and shape the backend, the serving fields (``slo`` to
 ``max_resident_mb``) configure the query engines, and ``tuning`` says where
 the performance knobs come from (``repro_torch.tune``). None of them
-changes a result, and none enters ``DiFuserConfig``: the mesh backend reads
+changes a result (``residency`` included: it only says where the banks
+live), and none enters ``DiFuserConfig``: the mesh backend reads
 its share of them through ``distributed_config``. ``fasst`` is the one
 exception there: on the mesh, as in the reference, ``fasst=False`` takes the
 naive sample partition and returns x unsorted."""
@@ -35,6 +36,10 @@ class RunSpec:
     model: str = DEFAULT_MODEL
     # execution strategy
     backend: str = "auto"        # "auto" | "single" | "serial" | "mesh"
+    residency: str = "auto"      # "auto" | "host" | "device": where a store's
+    #   banks live for serving; "device" places plan-order row blocks on the
+    #   serving mesh (shard-local query reductions), "auto" follows the
+    #   resolved backend (mesh -> device, else host; runtime.resolve_residency)
     mu_v: int = 1                # vertex shards of the 2-D grid
     mu_s: int = 1                # sample-space (sim) shards
     partition: str = "block"     # vertex-assignment strategy (partition.plan)

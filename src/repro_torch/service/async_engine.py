@@ -21,9 +21,15 @@ without bound. This module is the admission path in front of it:
   resident bytes and the cross-entry stack under it (the stack goes
   first); an evicted entry is rebuilt on its next touch.
 * **Cross-entry dispatch.** SpreadEstimate buckets against *different*
-  entries of the same register geometry are stacked (rows offset) into one
-  matrix and answered in one batch, through ``queries._spread_batch`` and so
-  through the cardinality kernel.
+  host-resident entries of the same register geometry are stacked (rows
+  offset) into one matrix and answered in one batch, through
+  ``queries._spread_batch`` and so through the cardinality kernel. A
+  device-resident entry's buckets run on its mesh, one by one.
+* **Device residency.** The serve thread's query batches and the mutation
+  thread's repairs, rebuilds and placements of a device entry are
+  operations of one serving mesh; the controller's lock
+  (``launch.mesh.Controller.call``) makes each atomic, its record and all
+  its collectives, so the two threads never interleave collectives.
 
 The async layer reorders work but never changes it: every answer is
 byte-equal to the synchronous engine's for the same query against the same

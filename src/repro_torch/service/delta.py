@@ -1,12 +1,12 @@
 """Incremental repair of a resident index after a graph delta.
 
-Counterpart of the reference's ``service/delta.py``, host residency.
-Edge insertions need no rebuild: registers form a max-merge lattice and new
-edges only grow each simulation's reachable sets, so the old fixpoint lies
-below the new one and monotone sweeps climb the rest of the way. Per bank,
-one propagate sweep over the touched edges alone (the probe) decides whether
-anything changed; only then does a full fixpoint run, from the probe's
-matrix, so it ends in about as many sweeps as the change spreads.
+Counterpart of the reference's ``service/delta.py``. Edge insertions need no
+rebuild: registers form a max-merge lattice and new edges only grow each
+simulation's reachable sets, so the old fixpoint lies below the new one and
+monotone sweeps climb the rest of the way. Per bank, one propagate sweep
+over the touched edges alone (the probe) decides whether anything changed;
+only then does a full fixpoint run, from the probe's matrix, so it ends in
+about as many sweeps as the change spreads.
 
 Removals cannot un-merge registers, so they accrue staleness: the matrix
 over-estimates until the removed fraction passes ``staleness_threshold``,
@@ -22,6 +22,18 @@ the insertion repair runs on the plan-order matrix instead and sweeps only
 the plan shards the delta dirtied, widening only where changes spread
 (``partition.serial.repair_plan_shards``); its result is byte-equal to the
 per-bank repair's.
+
+The entry's residency decides over the caller's backend both ways, as in
+the reference: a device entry (plan-order row blocks on a serving mesh)
+repairs on ``mesh`` where its rows live (``"auto"`` or no backend), on
+``serial`` when the caller names a backend that cannot repair plan shards
+(the blocks gathered to the controller, repaired there and placed again),
+never bank by bank; its delta reaches every rank's graph as the
+``GraphDelta`` itself, every rank making the new graph at once
+(``launch.mesh.Controller.apply_delta``). A host entry
+never repairs on ``mesh`` (``serial`` takes its place). Where the reference
+takes ``serial`` because no mesh is there, a device entry raises: its
+blocks are never repaired elsewhere behind the caller's back.
 
 Each call runs in a ``delta.apply`` span (the ``repair`` lane, annotated
 with the repair's backend), with the port's ``delta.new_graph``,
@@ -43,6 +55,7 @@ from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph, GraphDelta, edge_pair_keys
 from repro_torch.kernels import ops
 from repro_torch.kernels.edges import EdgeOperands
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.obs import metrics, trace
 from repro_torch.service.store import SketchStore, StoreEntry, StoreKey
 
@@ -84,18 +97,34 @@ def _touched_edges(new_g: Graph, delta: GraphDelta, ep) -> Optional[tuple]:
 
 def _shard_repair_backend(backend, entry: StoreEntry):
     """The backend of the shard-restricted repair, or None for the per-bank
-    one. ``"auto"`` takes ``serial`` when a plan is attached; ``None`` and a
-    backend without ``shard_repair`` take the per-bank repair. (The
-    reference's device-resident routing waits for the port's multi-GPU
-    slice: every entry here is host resident.)"""
-    from repro_torch.runtime import get_backend
+    one, routed as the reference routes it (module doc): ``"auto"`` takes
+    ``serial`` when a plan is attached; a device entry takes ``mesh`` for
+    ``"auto"`` and ``None``, ``serial`` for a backend without the
+    ``shard_repair`` capability, never the per-bank repair; a host entry
+    never takes ``mesh``."""
+    from repro_torch.runtime import BackendUnavailable, get_backend
 
-    if backend == "auto":
-        return get_backend("serial") if entry.plan is not None else None
+    device = entry.residency == "device"
+    if backend == "auto" or (backend is None and device):
+        if entry.plan is None:
+            return None
+        if device:
+            b = get_backend("mesh")
+            ok, why = b.available()
+            if not ok:
+                raise BackendUnavailable(f"a device-resident entry repairs on the mesh: "
+                                         f"{why}")
+            return b
+        return get_backend("serial")
     if backend is None:
         return None
     b = get_backend(backend) if isinstance(backend, str) else backend
-    return b if b.capabilities().shard_repair else None
+    caps = b.capabilities()
+    if not caps.shard_repair:
+        return get_backend("serial") if device else None
+    if caps.needs_mesh and not device:
+        return get_backend("serial")
+    return b
 
 
 def apply_delta(store: SketchStore, key: StoreKey, delta: GraphDelta, *,
@@ -150,7 +179,10 @@ def _apply(store: SketchStore, key: StoreKey, delta: GraphDelta,
     context_free = resolve_model(entry.cfg.model).context_free_edges
 
     with trace.span("delta.new_graph", phase="repair"):
-        new_g = g.apply_delta(delta).sorted_by_dst()
+        if entry.residency == "device":   # every rank makes it from its own copy
+            new_g = launch_mesh.controller_of(entry.mesh).apply_delta(g, delta)
+        else:
+            new_g = g.apply_delta(delta).sorted_by_dst()
     entry.graph = new_g
     entry.version += 1
     rebuilt = False
@@ -186,15 +218,27 @@ def _apply(store: SketchStore, key: StoreKey, delta: GraphDelta,
 def _repair_insertions_sharded(entry: StoreEntry, new_g: Graph, touched: tuple, backend):
     """The shard-restricted monotone insertion repair through a
     ``shard_repair`` backend: the plan-order matrix is repaired from the
-    shards the delta dirtied, sweeps widening only where changes spread.
+    shards the delta dirtied, sweeps widening only where changes spread. A
+    device entry's blocks go in placed and come back placed (``mesh``).
     Returns (sweeps, banks touched, shards swept)."""
     from repro_torch.runtime.spec import RunSpec
 
-    spec = RunSpec.from_config(entry.cfg)
+    spec = RunSpec.from_config(entry.cfg, vertex_axis=entry.vertex_axis)
+    planned_old = entry.planned_matrix()
+    kw = {}
+    if isinstance(planned_old, launch_mesh.Placement):
+        if backend.name == "mesh":
+            kw["mesh"] = entry.mesh
+        else:   # an explicit serial repair of a device entry runs on the controller
+            planned_old = planned_old.gather()
     planned_new, sweeps, swept = backend.repair_plan_shards(
-        new_g, spec, entry.x, entry.planned_matrix(), entry.plan, touched)
+        new_g, spec, entry.x, planned_old, entry.plan, touched, **kw)
     old_banks = list(entry.banks)
     entry.set_planned_matrix(planned_new)
+    if entry.residency == "device":
+        banks_touched = sum(old_banks[0].placement.changed_columns(
+            entry.banks[0].placement, entry.num_banks))
+        return sweeps, banks_touched, swept   # its queries never read edge operands
     banks_touched = sum(1 for b_old, b_new in zip(old_banks, entry.banks)
                         if not torch.equal(b_old, b_new))
     # the serving cache gets the new graph's operands (the version moved)
@@ -207,6 +251,9 @@ def _repair_insertions(entry: StoreEntry, new_g: Graph, delta: GraphDelta):
     """Monotone insertion repair, bank by bank, on the entry's device.
     Returns (sweeps, banks touched). A stale entry is repaired too: its
     matrix stays a sound over-approximation."""
+    if entry.residency == "device":
+        raise ValueError("a device-resident entry repairs plan shards on its mesh, "
+                         "not bank by bank")
     cfg = entry.cfg
     model = resolve_model(cfg.model)
     dev = entry.device

@@ -13,6 +13,10 @@ of a chunk share one run, and results are memoized against the entry's
 top-k traffic against an unchanged index is a dictionary hit; a swap of the
 entry (``SketchStore.swap_entry``) drops the key's memos at once.
 
+A batch against a device-resident entry (``StoreEntry.place_on_mesh``)
+runs as one operation of its serving mesh, shard-locally, and is recorded
+with ``backend="mesh:device"``; its answers are the host lowering's.
+
 Every batch runs in a timed span (``engine.*_batch``, the ``query`` lane)
 and lands in the ``engine.*`` metrics; with latency budgets configured
 (``slo``, or ``RunSpec.slo``) an SLO watchdog reads each batch's latency
@@ -58,8 +62,9 @@ class QueryResult:
            included.
     amortized_s: latency_s / batch_size.
     batch_size: real requests in the executed batch.
-    backend: ``"single:host"`` (a reduction over the canonical matrix) or
-           ``"memo"`` (a top-k memo hit, nothing executed).
+    backend: ``"single:host"`` (a reduction over the canonical matrix),
+           ``"mesh:device"`` (shard-local reductions on the placed blocks of
+           a device entry) or ``"memo"`` (a top-k memo hit, nothing executed).
     cache_hit: the result came from the top-k memo.
     deduped: this request shared an identical request's run in its batch.
     """

@@ -21,9 +21,9 @@ Lowest score goes first. Entries the store refuses to evict are skipped:
 *stale* entries (their over-approximating matrix is history-dependent — a
 pristine rebuild would change answers, violating the async≡sync contract)
 and any key the caller protects (e.g. keys with queries in flight, to
-avoid evict/rebuild thrash within one tick). The port's entries are all
-host-resident (``StoreEntry.residency``), so the reference's exclusion of
-mesh-placed entries never applies here.
+avoid evict/rebuild thrash within one tick), and *device-placed* entries
+(``StoreEntry.residency == "device"``: their row blocks pin mesh state the
+recipe cannot make again; the store refuses to evict them too).
 
 ``clock`` (``time.monotonic`` by default) is injectable, so a test drives
 the scores with its own timeline. The async engine enforces the budget

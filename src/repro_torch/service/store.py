@@ -1,9 +1,9 @@
 """Persistent sketch store: the index half of the influence query service.
 
-Counterpart of the reference's ``service/store.py``, host residency only.
-The costly step of DiFuseR is the build of the register matrix to its
-fixpoint (Alg. 1 and Alg. 4 lines 3-6); top-k selection, spread estimates
-and marginal gains are cheap reductions over it. The ``SketchStore`` runs
+Counterpart of the reference's ``service/store.py``. The costly step of
+DiFuseR is the build of the register matrix to its fixpoint (Alg. 1 and
+Alg. 4 lines 3-6); top-k selection, spread estimates and marginal gains are
+cheap reductions over it. The ``SketchStore`` runs
 that build once per (graph, diffusion setting, seed) key, keeps the
 ``int8[n_pad, J]`` matrix on the device, and hands queries the warm matrix.
 
@@ -13,11 +13,23 @@ chunks of ``J / num_banks`` registers, and bank b fills register slots
 is column-independent, so the concatenation of the banks is byte-equal to
 one build; a delta repairs bank by bank.
 
-The banks live on the store's device in canonical (original-id) row order.
-``attach_plan`` adds a vertex-shard plan whose row order ``planned_matrix``
-serves; placing those row blocks on several devices waits for the port's
-multi-GPU slice. Snapshots (``save``/``load``) use the reference's npz
-fields, so either package loads the other's.
+Residency. A ``"host"`` entry keeps its banks on the store's device in
+canonical (original-id) row order; ``attach_plan`` adds a vertex-shard plan
+whose row order ``planned_matrix`` serves. ``place_on_mesh`` makes an entry
+``"device"``-resident: its plan-order matrix is scattered as row blocks
+over a serving mesh (``launch.mesh.make_serving_mesh``; block v, rows ``[v
+* n_loc, (v + 1) * n_loc)``, on rank v), each bank a column slice of every
+block (``PlacedBank``). The query reductions then run shard-locally where
+the rows live, ``planned_matrix()`` is the placement itself
+(``launch.mesh.Placement``), ``matrix`` is the gather fallback (the blocks
+gathered to the controller and put back in canonical order), and a delta
+re-sweeps the dirtied shards on the mesh. ``set_matrix``,
+``set_planned_matrix`` and ``install_canonical_banks`` keep the residency:
+a device entry's new matrix is placed again. ``to_host`` undoes the
+placement. A device entry is not evictable and takes no other plan; it
+lives as long as its serving world. Snapshots (``save``/``load``) use the
+reference's npz fields, device-saved ones included, so either package
+loads the other's; ``load(path, mesh=…)`` places the entry.
 
 Eviction and the double buffer (the async engine's half of the store):
 ``evict`` drops an entry's banks and keeps an ``EvictionRecipe``, from
@@ -38,8 +50,11 @@ matrix the caller made; the serial ring's in-place merges
 (``bucket_propagate``/``bucket_cascade``) write only the ring state that its
 build or its repair allocated (the shard repair copies ``planned_matrix()``
 into its own grid, and ``set_planned_matrix`` gathers new banks from the
-repair's output). ``tests/test_torch_async_service.py`` holds version N's
-bank bytes across a shadow's delta, rebuild and ``set_matrix``.
+repair's output). Placed blocks too: the mesh repair and the warm rounds
+copy a rank's block into their own state, the repair's output is a new
+block under a new handle, and ``swap_entry`` installs the entry that holds
+it. ``tests/test_torch_async_service.py`` holds version N's bank bytes
+across a shadow's delta, rebuild and ``set_matrix``.
 """
 from __future__ import annotations
 
@@ -47,6 +62,7 @@ import copy
 import dataclasses
 import threading
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -59,8 +75,10 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.diffusion.constants import DEFAULT_MODEL
 from repro_torch.graphs.structs import Graph
 from repro_torch.kernels.edges import EdgeOperands
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.obs import metrics, trace
 from repro_torch.partition.plan import PartitionPlan
+from repro_torch.service.world import backend_call
 
 #: what a snapshot records for the reference's ``DiFuserConfig.impl`` and
 #: ``edge_chunk`` (its plain path and its default chunk): the port has
@@ -94,10 +112,26 @@ class StoreKey:
                         max_cascade_iters=cfg.max_cascade_iters, model=cfg.model)
 
 
+class PlacedBank:
+    """Bank b of a device entry: columns ``[b * j_loc, (b + 1) * j_loc)`` of
+    every placed row block (the reference's per-bank sharded array).
+    ``shape``, ``numel`` and ``device`` describe the whole bank."""
+
+    def __init__(self, placement, b: int, j_loc: int):
+        self.placement, self.b = placement, b
+        self.shape = (placement.shape[0], j_loc)
+        self.dtype, self.device = placement.dtype, placement.device
+
+    def numel(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+
 @dataclasses.dataclass
 class StoreEntry:
     """One resident index: ``banks[b]`` is ``int8[n_pad, J / num_banks]`` on
-    the device, rows in original-id order."""
+    the device, rows in original-id order (``residency="host"``), or a
+    ``PlacedBank`` of the plan-order row blocks on ``mesh``
+    (``residency="device"``, ``place_on_mesh``)."""
 
     key: StoreKey
     graph: Graph                 # serving layout, sorted by destination
@@ -112,6 +146,9 @@ class StoreEntry:
     rebuilds: int = 0
     evictions: int = 0           # times this index was evicted and rebuilt
     plan: Optional[PartitionPlan] = None
+    residency: str = "host"      # "host" | "device" (the banks' row order and place)
+    mesh: Optional[object] = None           # the serving mesh of a device entry
+    vertex_axis: str = "data"               # the mesh axis its row blocks split on
     _matrix_cache: Optional[tuple] = None   # (version, concatenated banks)
     _edges_cache: Optional[tuple] = None    # (version, EdgeOperands)
     _planned_cache: Optional[tuple] = None  # (version, plan-order matrix)
@@ -129,22 +166,17 @@ class StoreEntry:
         return self.x.shape[0] // len(self.banks)
 
     @property
-    def residency(self) -> str:
-        """Where the banks live for serving: ``"host"``, canonical row order
-        on one device (the reference's ``"device"`` placement on a mesh
-        waits for the port's multi-GPU slice)."""
-        return "host"
-
-    @property
     def serving_backend(self) -> str:
         """The path that answers queries against this entry, as
-        ``QueryResult.backend`` records it: the reference's name for
-        reductions over the canonical matrix on one device."""
-        return "single:host"
+        ``QueryResult.backend`` records it: ``"mesh:device"`` (shard-local
+        reductions on the placed blocks) or ``"single:host"`` (reductions
+        over the canonical matrix on one device)."""
+        return "mesh:device" if self.residency == "device" else "single:host"
 
     def device_bytes(self) -> int:
-        """Device bytes of the banks (the eviction currency: the caches are
-        derived and droppable, the banks are the index)."""
+        """Device bytes of the banks, every placed block of a device entry
+        counted (the eviction currency: the caches are derived and
+        droppable, the banks are the index)."""
         return sum(b.numel() for b in self.banks)
 
     def clone_for_update(self) -> "StoreEntry":
@@ -162,7 +194,16 @@ class StoreEntry:
     @property
     def matrix(self) -> torch.Tensor:
         """The ``int8[n_pad, J]`` matrix, rows in original-id order; several
-        banks are concatenated once per ``version``."""
+        banks are concatenated once per ``version``. On a device entry this
+        is the gather fallback: the placed blocks gathered to the controller
+        and un-permuted with ``plan.perm`` (shard-local serving never calls
+        it), once per ``version``."""
+        if self.residency == "device":
+            if self._matrix_cache is None or self._matrix_cache[0] != self.version:
+                perm = torch.from_numpy(self.plan.perm[:self.graph.n_pad].astype(np.int64))
+                pm = self._placement().gather()
+                self._matrix_cache = (self.version, pm.index_select(0, perm.to(pm.device)))
+            return self._matrix_cache[1]
         if len(self.banks) == 1:
             return self.banks[0]
         if self._matrix_cache is None or self._matrix_cache[0] != self.version:
@@ -184,37 +225,122 @@ class StoreEntry:
         self._edges_cache = (self.version, edges)
         return edges
 
-    def planned_matrix(self) -> torch.Tensor:
+    def planned_matrix(self):
         """The matrix with rows in the attached plan's order (shard v owns
         rows ``[v * n_loc, (v + 1) * n_loc)``), padded to ``plan.n_pad``
-        with VISITED rows; made once per ``version``."""
+        with VISITED rows; made once per ``version``. On a device entry it
+        is the ``launch.mesh.Placement`` of the resident blocks themselves
+        (no data moves)."""
         if self.plan is None:
             raise ValueError("entry has no partition plan attached")
+        if self.residency == "device":
+            return self._placement()
         if self._planned_cache is None or self._planned_cache[0] != self.version:
-            m = self.matrix
-            extra = self.plan.n_pad - m.shape[0]
-            if extra > 0:
-                m = torch.cat([m, torch.full((extra, m.shape[1]), VISITED, dtype=m.dtype,
-                                             device=m.device)])
-            inv = torch.from_numpy(self.plan.inv_perm.astype(np.int64)).to(m.device)
-            self._planned_cache = (self.version, m.index_select(0, inv))
+            self._planned_cache = (self.version, self._to_plan_order(self.matrix))
         return self._planned_cache[1]
 
+    # -- residency ------------------------------------------------------------
+
+    def _placement(self):
+        return self.banks[0].placement
+
+    def _to_plan_order(self, m: torch.Tensor) -> torch.Tensor:
+        """Canonical rows -> plan-order rows, padded to ``plan.n_pad`` with
+        VISITED rows."""
+        extra = self.plan.n_pad - m.shape[0]
+        if extra > 0:
+            m = torch.cat([m, torch.full((extra, m.shape[1]), VISITED, dtype=m.dtype,
+                                         device=m.device)])
+        inv = torch.from_numpy(self.plan.inv_perm.astype(np.int64)).to(m.device)
+        return m.index_select(0, inv)
+
+    def _install_planned(self, placement) -> None:
+        """Make a placed plan-order matrix the resident state (its banks are
+        column slices of it); bumps ``version``."""
+        j_loc = self.regs_per_bank
+        self.banks = [PlacedBank(placement, b, j_loc) for b in range(self.num_banks)]
+        self.version += 1
+        self._matrix_cache = self._planned_cache = None
+
+    def place_on_mesh(self, mesh, vertex_axis: str = "data") -> "StoreEntry":
+        """Place this entry's banks on ``mesh`` as plan-order row blocks:
+        block v of the attached plan on the mesh's rank v, every bank a
+        column slice of each block. Needs a plan whose ``mu_v`` is the
+        mesh's ``vertex_axis`` size and a mesh whose other axes are trivial
+        (rows are the only split; the sample space splits into banks, not
+        mesh columns). A layout change, not a version bump."""
+        if self.plan is None:
+            raise ValueError("attach a partition plan before device placement "
+                             "(SketchStore.attach_plan)")
+        if mesh.axis_size(vertex_axis) != self.plan.mu_v:
+            raise ValueError(f"plan has mu_v={self.plan.mu_v} row blocks but mesh axis "
+                             f"{vertex_axis!r} is {mesh.axis_size(vertex_axis)}-way")
+        if mesh.size != self.plan.mu_v or mesh.axis_names[0] != vertex_axis:
+            raise ValueError("serving meshes shard rows only: the vertex axis comes first "
+                             "and every other axis has size 1, got shape "
+                             f"{dict(zip(mesh.axis_names, mesh.shape))}")
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's ranks run on {mesh.device.type}, the entry's "
+                             f"banks on {self.device.type}")
+        canonical = self.matrix
+        pm = self._to_plan_order(canonical)
+        with trace.span("store.place_banks", phase="build", mu_v=self.plan.mu_v) as sp:
+            placement = launch_mesh.place_rows(mesh, pm, self.plan.n_loc)
+            sp.sync(placement.local)
+        was_device = self.residency == "device"
+        self.mesh, self.vertex_axis, self.residency = mesh, vertex_axis, "device"
+        j_loc = self.regs_per_bank
+        self.banks = [PlacedBank(placement, b, j_loc) for b in range(self.num_banks)]
+        metrics.counter("store.device_placements").inc()
+        if not was_device:
+            metrics.gauge("store.device_resident_entries").value += 1.0
+        self._planned_cache = None
+        self._matrix_cache = (self.version, canonical)
+        return self
+
+    def to_host(self) -> "StoreEntry":
+        """Undo ``place_on_mesh``: canonical host-order banks again."""
+        if self.residency != "device":
+            return self
+        canonical = self.matrix
+        self.residency, self.mesh = "host", None
+        metrics.gauge("store.device_resident_entries").value -= 1.0
+        self.banks = _split_banks(canonical, self.num_banks)
+        self._matrix_cache = (self.version, canonical)
+        self._planned_cache = None
+        return self
+
     def set_matrix(self, m: torch.Tensor) -> None:
-        """Replace the matrix (canonical row order), keeping the bank split."""
+        """Replace the matrix (canonical row order), keeping the bank split
+        and the residency; bumps ``version``."""
+        if self.residency == "device":
+            self._install_planned(launch_mesh.place_rows(
+                self.mesh, self._to_plan_order(m), self.plan.n_loc))
+            return
         self.install_canonical_banks(_split_banks(m, self.num_banks))
 
-    def set_planned_matrix(self, pm: torch.Tensor) -> None:
-        """Replace the matrix from a plan-order one (the shard repair's
-        output), un-permuted to canonical row order; bumps ``version``. The
-        plan-order cache becomes ``pm`` itself for the new version, so the
-        next ``planned_matrix`` does not permute it back."""
+    def set_planned_matrix(self, pm) -> None:
+        """Replace the matrix from a plan-order one (a shard repair's output);
+        bumps ``version``. A device entry installs a placement as it is (a
+        tensor is placed first); a host entry un-permutes ``pm`` to canonical
+        row order and keeps ``pm`` as the new version's plan-order cache."""
+        if self.residency == "device":
+            if not isinstance(pm, launch_mesh.Placement):
+                pm = launch_mesh.place_rows(self.mesh, pm, self.plan.n_loc)
+            self._install_planned(pm)
+            return
         perm = torch.from_numpy(self.plan.perm[:self.graph.n_pad].astype(np.int64))
         self.set_matrix(pm.index_select(0, perm.to(pm.device)))
         self._planned_cache = (self.version, pm)
 
     def install_canonical_banks(self, banks: list) -> None:
-        """Adopt freshly built banks (the rebuild path); bumps ``version``."""
+        """Adopt freshly built canonical banks (the rebuild path), keeping the
+        residency (a device entry places the new matrix); bumps ``version``."""
+        if self.residency == "device":
+            m = banks[0] if len(banks) == 1 else torch.cat(banks, dim=1)
+            self._install_planned(launch_mesh.place_rows(
+                self.mesh, self._to_plan_order(m), self.plan.n_loc))
+            return
         self.banks = list(banks)
         self.version += 1
 
@@ -354,8 +480,8 @@ class SketchStore:
             banks, iters = [], 0
             for b in range(self.num_banks):
                 with trace.span("store.build_bank", bank=b, timed=True) as sp:
-                    m_b, it_b = backend.build_matrix(
-                        g_norm, spec, x_norm[b * j_loc:(b + 1) * j_loc],
+                    m_b, it_b = backend_call(
+                        backend, "build_matrix", g_norm, spec, x_norm[b * j_loc:(b + 1) * j_loc],
                         reg_offset=b * j_loc, normalized=True, edges=edges,
                         device=self.device)
                     sp.sync(m_b)
@@ -391,7 +517,8 @@ class SketchStore:
         """Drop a resident entry's banks and keep its rebuild recipe; the
         next ``entry``/``get_or_build`` rebuilds it. Returns the device bytes
         freed. A stale entry (removals not rebuilt) is refused: its matrix
-        depends on its history, and a rebuild would change its answers."""
+        depends on its history, and a rebuild would change its answers. So is
+        a device entry: it pins mesh state the recipe cannot make again."""
         with self._lock:
             e = self._entries.get(key)
             if e is None:
@@ -401,6 +528,9 @@ class SketchStore:
             if e.stale:
                 raise ValueError("stale entries are not evictable: the over-approximating "
                                  "matrix cannot be reconstructed by a pristine rebuild")
+            if e.residency == "device":
+                raise ValueError("device-resident entries are not evictable; to_host() "
+                                 "first")
             freed = e.device_bytes()
             self._evicted[key] = EvictionRecipe(
                 key=e.key, graph=e.graph, cfg=e.cfg, x=e.x, plan=e.plan, version=e.version,
@@ -475,12 +605,20 @@ class SketchStore:
         """Keep a vertex-shard plan with an entry: queries are unchanged,
         ``planned_matrix`` serves the plan's row order, and deltas report
         the plan shards they touch. The plan outlives deltas and rebuilds
-        (the vertex set is fixed) and rides in snapshots."""
+        (the vertex set is fixed) and rides in snapshots. A device entry,
+        placed under its plan, is refused."""
         entry = self.entry(key)
+        if entry.residency == "device":
+            raise ValueError("entry is device-resident under its current plan; "
+                             "to_host() before attaching another")
         plan.validate(entry.graph)
         entry.plan = plan
         entry._planned_cache = None
         return entry
+
+    def place(self, key: StoreKey, mesh, *, vertex_axis: str = "data") -> StoreEntry:
+        """``StoreEntry.place_on_mesh`` by key."""
+        return self.entry(key).place_on_mesh(mesh, vertex_axis=vertex_axis)
 
     # -- persistence --------------------------------------------------------
 
@@ -489,7 +627,9 @@ class SketchStore:
         return path if path.endswith(".npz") else path + ".npz"
 
     def save(self, path: str, key: StoreKey) -> None:
-        """Write one entry (matrix, graph, setting) as the reference's npz."""
+        """Write one entry (matrix, graph, setting) as the reference's npz; a
+        device entry writes its gathered canonical matrix with
+        ``residency="device"``."""
         e = self.entry(key)
         g = e.graph
         plan_fields = {}
@@ -510,12 +650,15 @@ class SketchStore:
             build_iters=e.build_iters, version=e.version, residency=np.str_(e.residency),
             stale=e.stale, staleness_frac=e.staleness_frac)
 
-    def load(self, path: str) -> StoreEntry:
+    def load(self, path: str, *, mesh=None, vertex_axis: str = "data") -> StoreEntry:
         """Restore an entry written by either package's ``save`` (no build).
         The reference's ``impl`` and ``edge_chunk`` are ignored; a snapshot
         without ``model`` predates the model zoo and is ``wc``. The key's
         ``graph_key`` is the saved one: it names the lineage, the graph the
-        index was registered under before any delta."""
+        index was registered under before any delta. With ``mesh`` the entry
+        is placed on it (its snapshot must carry a plan); a snapshot saved
+        device-resident and loaded without one warns and serves host-order,
+        with the same answers."""
         z = np.load(self._npz_path(path))
         files = set(z.files)
         cfg = DiFuserConfig(
@@ -543,4 +686,14 @@ class SketchStore:
                 g.n, int(z["plan_mu_v"]), int(z["plan_mu_s"]), z["plan_perm"],
                 strategy=str(z["plan_strategy"]))
         self._entries[key] = entry
+        saved = str(z["residency"]) if "residency" in files else "host"
+        if mesh is not None:
+            if entry.plan is None:
+                raise ValueError("load(mesh=...) asked for device placement but the "
+                                 "snapshot carries no partition plan to place with")
+            entry.place_on_mesh(mesh, vertex_axis=vertex_axis)
+        elif saved == "device":
+            warnings.warn("snapshot was saved device-resident; pass load(mesh=...) to "
+                          "place its row blocks again (serving host-order for now: the "
+                          "same answers, through the canonical matrix)", stacklevel=2)
         return entry

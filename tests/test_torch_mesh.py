@@ -297,6 +297,9 @@ def test_supports_and_auto_inside_a_world(port):
 
 
 def test_supports_and_auto_without_a_group():
+    import types
+
+    import torch
     import torch.distributed as dist
 
     from repro_torch.runtime import BackendUnavailable, RunSpec, get_backend, resolve_backend
@@ -308,9 +311,13 @@ def test_supports_and_auto_without_a_group():
     assert resolve_backend(RunSpec()).name == "single"
     with pytest.raises(BackendUnavailable, match="no process group"):
         resolve_backend(RunSpec(backend="mesh", mu_v=2, mu_s=2))
-    assert not get_backend("mesh").capabilities().shard_repair
-    with pytest.raises(BackendUnavailable, match="not ported"):
-        get_backend("mesh").repair_plan_shards(None, RunSpec(), None, None, None, ())
+    caps = get_backend("mesh").capabilities()
+    assert caps.shard_repair and caps.needs_mesh
+    # the repair makes its serving mesh over the process group, which is missing
+    plan = types.SimpleNamespace(mu_v=2, n_loc=4)
+    with pytest.raises(RuntimeError, match="no process group"):
+        get_backend("mesh").repair_plan_shards(None, RunSpec(), None, torch.zeros((8, 4)),
+                                               plan, (0,))
 
 
 def test_make_mesh_refuses_a_grid_larger_than_the_world(tmp_path):

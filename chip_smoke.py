@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,4,4b,9  # tuning and the report (9 needs 4, 4b)
     python3 chip_smoke.py --phases 1,4,4b,10  # the mesh backend (10 needs 4, 4b)
     python3 chip_smoke.py --phases 1,6,11  # device-resident serving (11 needs 6)
+    python3 chip_smoke.py --phases 1,4,4b,10,12  # the dry run (12 needs 10)
 
 Phases (each raises on failure; none is caught):
 
@@ -45,7 +46,8 @@ Phases (each raises on failure; none is caught):
    (grid 2x2, ``degree``, fused prologue, ``lane_fill`` 256), counters as in
    phase 4; its seeds must equal phase 4's;
 5. each kernel at phase 4's and 4b's shapes: time (CUDA events), its plain
-   version's time, the largest difference between the two, and the bound;
+   version's time, the largest difference between the two, and the bound
+   (``kernels.cost``'s operations and bytes over ``utils.roofline``'s roofs);
    for the sweeps and the serial ring's merges also their work lists
    (items, split rows, partials, longest item) and the bytes they gather;
    one ``bucket_propagate`` launch over each propagate bucket of a ring
@@ -145,7 +147,23 @@ Phases (each raises on failure; none is caught):
    (e) ``python -m torch.distributed.run --nproc-per-node 4 -m repro_torch
    serve --residency device --plan-shards 4`` at rmat:16, its answers equal
    to a host-resident run's. As in phase 10 the ranks time-slice one card
-   and exchange through host memory: no multi-GPU figure.
+   and exchange through host memory: no multi-GPU figure;
+12. the dry run held against the card (needs 10; (c) checks its seeds
+   against 4's): (a) ``launch.dryrun.run_cell`` of the reference's six
+   production records (three cells on the 16 x 16 and the 2 x 16 x 16 grid)
+   and twitter on the 16 x 16 grid under the allgather schedule, each ``ok``,
+   written to ``chiprun_out/chip_smoke/dryrun/``: per device, wire bytes by
+   kind, flops, bytes accessed, the memory fields and ``Roofline``'s three
+   times and bottleneck on the H100's roofs; a ring cell's
+   collective-permute bytes equal 3 x (mu_v - 1) x n_loc x j_loc; (b) the
+   dry program of each phase 10 (a) rank's partition (its real bucket
+   widths), times that run's build, cascade and rebuild sweeps and K, equals
+   the rank's exchanges (calls and bytes sent per kind) and kernel launches
+   (the partition's ``fused_sample`` aside); rank 0's predicted peak
+   (arguments and temp) beside its ``max_memory_allocated``, not a gate;
+   (c) phase 4's launcher once under ``torch.profiler`` with CUDA activity:
+   the top 12 kernels by device time (``utils.opprof``), the port's
+   kernels' share of it, and device-busy time over wall time.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
@@ -184,19 +202,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
 
-# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): device memory
-# 3.35 TB/s; INT32 = 132 SMs x 64 INT32 lanes x 1.98 GHz.
-MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-
-# integer operations per (edge, register): the predicate (xor, subtract,
-# compare; the lt remix adds fmix32's 8) and the merge
-SWEEP_OPS = {0: 4, 1: 12}
-# per register: j * M2 (one add from the word's base), xor, fmix32's 8, clz,
-# byte pack; the VISITED merge is per 4-register word and not counted
-FILL_OPS = 12
-CARD_OPS = 5          # compare, shift, 64-bit add, count
-REGS_PER_WORD = 4     # the sweeps test VISITED on 4 registers at once
+# The H100's roofs (device memory 3.35 TB/s, INT32 about 16.7 T operations a
+# second) are ``repro_torch.utils.roofline``'s, and each kernel's operations
+# and compulsory bytes ``repro_torch.kernels.cost``'s: the bound column and
+# the dry run (phase 12) read the same counts.
 
 FULL = dict(graph="rmat:20", setting="0.1", model="wc", registers=1024)
 # phase 4b's spec: the reference launcher's serial grid, the degree planner
@@ -1044,8 +1053,9 @@ def phase_ring_timings(serial: dict) -> list:
     from repro_torch.core.fasst import SAMPLE_CHUNK
     from repro_torch.diffusion import resolve
     from repro_torch.kernels import bucket_propagate as bp
-    from repro_torch.kernels import fused_sample, fused_sweep
+    from repro_torch.kernels import cost, fused_sample, fused_sweep
     from repro_torch.partition.serial import _RingState
+    from repro_torch.utils.roofline import HBM_BW
 
     part = serial["partition"]
     launches = serial["launches"]
@@ -1059,7 +1069,6 @@ def phase_ring_timings(serial: dict) -> list:
     seed_v, _ = st.select(part.mu_s * part.j_loc, part.n_pad)
     st.commit(seed_v)
     variant, j = st.variant, part.j_loc
-    ops_per_pair = SWEEP_OPS[variant]
     longest = {name: max(int(torch.diff(r.rowptr).max().item())
                          for step in grid for by_v in step for r in by_v)
                for name, grid in (("propagate", st.p_rows), ("cascade", st.c_rows))}
@@ -1077,14 +1086,13 @@ def phase_ring_timings(serial: dict) -> list:
             log(f"[5] ptxas {inst}: {regs} registers, {spill} bytes spilled")
 
     def gathers(nbytes):
-        return (f"gathers {nbytes / 1e9:.4f} GB, {nbytes / MEM_BYTES_PER_S * 1e3:.4f} ms "
+        return (f"gathers {nbytes / 1e9:.4f} GB, {nbytes / HBM_BW * 1e3:.4f} ms "
                 f"at the device memory rate")
 
-    def bucket_bytes(rows):
-        n_w = int((torch.diff(rows.rowptr) > 0).sum().item())
-        n_r = int(torch.unique(rows.nbr).numel())
-        slots = rows.nbr.numel()
-        return 2 * n_w * j + n_r * j + 16 * slots + 4 * (part.n_loc + 1) + 4 * j, slots
+    def touched(rows):
+        """The rows the bucket's slots write and read."""
+        return dict(write_rows=int((torch.diff(rows.rowptr) > 0).sum().item()),
+                    read_rows=int(torch.unique(rows.nbr).numel()))
 
     out = []
     for name, replaces, grid, counts, m in (
@@ -1097,12 +1105,13 @@ def phase_ring_timings(serial: dict) -> list:
         rows, x = grid[kk][v][s], st.x[s]
         block = m[(v + kk) % part.mu_v, s]
         acc = m[v, s]
-        nbytes, slots = bucket_bytes(rows)
+        slots = rows.nbr.numel()
         if name == "bucket_propagate":
-            ops = ops_per_pair * slots * j
+            launch_cost = cost.bucket_propagate(part.n_loc, j, slots, variant, **touched(rows))
         else:   # one VISITED test per (slot, word), the predicate on VISITED reads
             vis_pairs = int((block == -1).sum(1)[rows.nbr.long()].sum().item())
-            ops = slots * j // REGS_PER_WORD + ops_per_pair * vis_pairs
+            launch_cost = cost.bucket_cascade(part.n_loc, j, slots, variant,
+                                              vis_pairs=vis_pairs, **touched(rows))
         # the merges reuse the ring state's scratch, as its sweeps do
         kw = dict(partial=st.partial)
         kern = getattr(bp, name + "_cuda")
@@ -1117,7 +1126,7 @@ def phase_ring_timings(serial: dict) -> list:
         log(f"[5] {name}: bucket (v={v}, s={s}, kk={kk}) of {slots} slots, longest row "
             f"{int(torch.diff(rows.rowptr).max().item())} slots; {_work_line(rows)}")
         out.append(_row(name, "bucket_propagate.cu", replaces, launches.get(name, 0), err,
-                        ms, plain_ms, _bound(nbytes, ops), note=gathers(slots * j)))
+                        ms, plain_ms, cost.bound_ms(launch_cost), note=gathers(slots * j)))
 
     # one launch over each propagate bucket of a ring sweep, each on its
     # built block, summed
@@ -1155,8 +1164,8 @@ def phase_ring_timings(serial: dict) -> list:
         launches.get("fused_sweep", 0), err,
         _time_ms(lambda: fused_sweep.fused_sweep_cuda(m, rows, x, **fuse), reps=5),
         _time_ms(lambda: fused_sweep.fused_sweep_plain(m, rows, x, **fuse), reps=1),
-        _bound(2 * part.n_loc * j + 16 * slots + 4 * (part.n_loc + 1) + 4 * j,
-               SERIAL["local_sweeps"] * ops_per_pair * slots * j),
+        cost.bound_ms(cost.fused_sweep(part.n_loc, j, slots, variant,
+                                       SERIAL["local_sweeps"])),
         note=gathers(SERIAL["local_sweeps"] * slots * j)))
 
     ep = resolve(cfg.model).edge_params(g, seed=cfg.seed)
@@ -1171,7 +1180,7 @@ def phase_ring_timings(serial: dict) -> list:
         launches.get("fused_sample", 0), err,
         _time_ms(lambda: fused_sample.fused_sample_cuda(*sample, x, variant=variant), reps=5),
         _time_ms(lambda: fused_sample.fused_sample_plain(*sample, x, variant=variant), reps=1),
-        _bound(num_e * j + 12 * num_e + 4 * j, ops_per_pair * num_e * j)))
+        cost.bound_ms(cost.fused_sample(num_e, j, variant))))
     return out
 
 
@@ -1212,11 +1221,6 @@ def _time_in_place_ms(setup, fn, reps: int) -> float:
     return total / reps
 
 
-def _bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _work_line(rows) -> str:
     """A bucket's work list: items (those with slots), split rows, partials
     and the longest item."""
@@ -1255,9 +1259,10 @@ def phase_timings(full: dict) -> list:
                                           edge_operands, normalize_inputs, x_tensor)
     from repro_torch.core.select import finish_select
     from repro_torch.diffusion import resolve
-    from repro_torch.kernels import (cascade_step, sketch_cardinality, sketch_fill,
+    from repro_torch.kernels import (cascade_step, cost, sketch_cardinality, sketch_fill,
                                      sketch_propagate)
     from repro_torch.kernels.edges import work_list
+    from repro_torch.utils.roofline import HBM_BW
 
     cfg = DiFuserConfig(num_registers=FULL["registers"], model=FULL["model"])
     g, x = normalize_inputs(full_graph(), cfg)
@@ -1270,35 +1275,31 @@ def phase_timings(full: dict) -> list:
     m_casc[int(s.item())] = -1                    # the first round's first sweep
     n_pad, num_regs = m.shape
     num_edges = edges.num_edges
-    cells = n_pad * num_regs
-    edge_bytes = num_edges * 16 + (n_pad + 1) * 4 + num_regs * 4
     vis_rows = (m_casc == -1).sum(1)
     vis_pairs = int(vis_rows[edges.src.long()].sum().item())
 
-    bound = _bound
     specs = [
         ("sketch_fill", "sketch_fill.cu", "src/repro/kernels/sketch_fill.py:47",
          lambda: sketch_fill.sketch_fill_cuda(m),
          lambda: sketch_fill.sketch_fill_plain(m),
-         bound(2 * cells, FILL_OPS * cells)),
+         cost.bound_ms(cost.sketch_fill(n_pad, num_regs))),
         ("sketch_cardinality", "sketch_cardinality.cu",
          "src/repro/kernels/sketch_cardinality.py:40",
          lambda: sketch_cardinality.cardinality_stats_cuda(m),
          lambda: sketch_cardinality.cardinality_stats_plain(m),
-         bound(cells + 8 * n_pad, CARD_OPS * cells)),
+         cost.bound_ms(cost.sketch_cardinality(n_pad, num_regs))),
         ("sketch_propagate", "sketch_propagate.cu",
          "src/repro/kernels/sketch_propagate.py:121",
          lambda: sketch_propagate.propagate_sweep_cuda(m, edges, x_t, variant=variant),
          lambda: sketch_propagate.propagate_sweep_plain(m, edges, x_t, variant=variant),
-         bound(2 * cells + edge_bytes, SWEEP_OPS[variant] * num_edges * num_regs)),
+         cost.bound_ms(cost.sketch_propagate(n_pad, num_regs, num_edges, variant))),
         # the cascade needs the predicate only where the source register is
         # VISITED: one test per (edge, 4-register word), the predicate on
         # vis_pairs
         ("cascade_step", "cascade_step.cu", "src/repro/kernels/cascade_step.py:80",
          lambda: cascade_step.cascade_sweep_cuda(m_casc, edges, x_t, variant=variant),
          lambda: cascade_step.cascade_sweep_plain(m_casc, edges, x_t, variant=variant),
-         bound(2 * cells + edge_bytes,
-               num_edges * num_regs // REGS_PER_WORD + SWEEP_OPS[variant] * vis_pairs)),
+         cost.bound_ms(cost.cascade_step(n_pad, num_regs, num_edges, variant, vis_pairs))),
     ]
     rows = []
     for name, file, replaces, kern, plain, bnd in specs:
@@ -1325,7 +1326,7 @@ def phase_timings(full: dict) -> list:
         f"(cascade: {vis_pairs} (edge, register) pairs with a VISITED source)")
     gather = num_edges * num_regs
     log(f"[5] the sweeps' gathers (each edge's read row, E x J): {gather / 1e9:.3f} GB, "
-        f"{gather / MEM_BYTES_PER_S * 1e3:.4f} ms at the device memory rate")
+        f"{gather / HBM_BW * 1e3:.4f} ms at the device memory rate")
     return rows
 
 
@@ -1338,7 +1339,7 @@ def phase_serve() -> dict:
     import torch
 
     from repro_torch.graphs import GraphDelta
-    from repro_torch.kernels import counters, sketch_cardinality
+    from repro_torch.kernels import cost, counters, sketch_cardinality
     from repro_torch.launch import serve_im
     from repro_torch.service import InfluenceEngine, Request, SpreadEstimate, TopKSeeds
     from repro_torch.service.queries import pad_candidate_sets
@@ -1398,10 +1399,9 @@ def phase_serve() -> dict:
             if isinstance(r.query, SpreadEstimate)][:SERVE["max_batch"]]
     cands = pad_candidate_sets(sets, entry.graph.n_pad - 1, 8).astype(np.int64)
     rows = entry.matrix[torch.from_numpy(cands).cuda()].amax(1)
-    cells = rows.numel()
     card_ms = _time_ms(lambda: sketch_cardinality.cardinality_stats_cuda(rows), reps=20)
     card_plain = _time_ms(lambda: sketch_cardinality.cardinality_stats_plain(rows), reps=5)
-    bound_ms, bound_by = _bound(cells + 8 * rows.shape[0], CARD_OPS * cells)
+    bound_ms, bound_by = cost.bound_ms(cost.sketch_cardinality(*rows.shape))
     log(f"[6] sketch_cardinality at a batch's shape ({tuple(rows.shape)}): {card_ms:.4f} ms "
         f"(plain {card_plain:.4f} ms, bound {bound_ms:.6f} ms by {bound_by})")
 
@@ -2065,10 +2065,12 @@ REPORT_SECTIONS = ("Runtime backends", "Phase breakdown", "Shard skew — measur
 def _tune_lines(tag: str, records: dict) -> None:
     """Each candidate's time, GB/s and share of the memory roof, then the
     family's default against its winner."""
+    from repro_torch.utils.roofline import HBM_BW
+
     for family, rec in records.items():
         for c in rec["candidates"]:
             log(f"[{tag}] {family} {c['label']}: {c['us']:.1f} us, {c['gbps']:.1f} GB/s, "
-                f"{c['gbps'] * 1e9 / MEM_BYTES_PER_S * 100:.1f}% of the roof")
+                f"{c['gbps'] * 1e9 / HBM_BW * 100:.1f}% of the roof")
         best = min(rec["candidates"], key=lambda c: c["us"])
         log(f"[{tag}] {family}: default {rec['candidates'][0]['label']} "
             f"{rec['default_us']:.1f} us, winner {best['label']} {rec['tuned_us']:.1f} us "
@@ -2292,6 +2294,8 @@ def _mesh_rank(rank: int, g, k: int) -> dict:
                         launches=dict(counters.LAUNCHES), plain=dict(counters.PLAIN_CALLS),
                         peak_bytes=torch.cuda.max_memory_allocated(),
                         device=rep.device, describe=rep.partition.stats().describe())
+        if tag == "a":   # phase 12 (b)'s prediction of this run
+            out[tag]["dry"] = _dry_prediction(rank, rep)
     # (c) the build alone, against the single path's matrix at the same J
     bspec = spec.with_(num_registers=MESH_BUILD_REGS)
     torch.cuda.reset_peak_memory_stats()
@@ -2308,6 +2312,23 @@ def _mesh_rank(rank: int, g, k: int) -> dict:
         del want
     del m
     return out
+
+
+def _dry_prediction(rank: int, rep) -> dict:
+    """The dry program of this rank's partition of a mesh run (its real
+    bucket widths), times the run's sweep counts: exchanges per kind
+    ``(calls, bytes sent)``, kernel launches, and the peak it predicts
+    (arguments and temp)."""
+    from repro_torch.launch.dryrun import dry_program
+
+    part = rep.partition
+    prog = dry_program(part, rep.spec.distributed_config(), k=len(rep.result.seeds),
+                       coord=divmod(rank, part.mu_s))
+    pred = prog.for_run(rep.result)
+    return dict(exchange={kind: (v["calls"], v["bytes_sent"])
+                          for kind, v in pred.summary().items()},
+                launches=dict(pred.launches), host_s=prog.host_s,
+                argument_bytes=prog.argument_bytes, temp_bytes=prog.temp_bytes)
 
 
 def _nccl_rank(rank: int) -> dict:
@@ -2749,9 +2770,116 @@ def phase_mesh_serving() -> dict:
                         for t in ("a", "b", "c", "d")})
 
 
+# -------------------------------------------------------------- phase 12 ----
+
+# phase 12 (a): the reference's six production records and twitter under the
+# allgather schedule; (c): the CUDA names of the port's kernels
+DRYRUN_EXTRA = ("difuser-twitter", "pod16x16", "allgather")
+KERNEL_SYMBOLS = ("sketch_fill_kernel", "cardinality_kernel", "item_sweep", "item_combine",
+                  "fused_sample_kernel")
+
+
+def phase_dryrun(mesh: dict, full) -> dict:
+    """Phase 12: the dry run held against the card (needs 10; 4 for (c)'s
+    seeds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun, im
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.utils import opprof
+    from repro_torch.utils.roofline import Roofline
+
+    check(mesh is not None, "phase 12 needs phase 10")
+    t_phase = time.perf_counter()
+    out_dir = OUT / "dryrun"
+    cells = [(name, mesh_name, "ring") for mesh_name in ("pod16x16", "pods2x16x16")
+             for name in dryrun.IM_CELLS] + [DRYRUN_EXTRA]
+    records = []
+    for name, mesh_name, schedule in cells:
+        grid = make_production_mesh(multi_pod=mesh_name != "pod16x16")
+        rec = dryrun.run_cell(name, grid, mesh_name, out_dir=out_dir, schedule=schedule,
+                              tag="" if schedule == "ring" else schedule)
+        check(rec["ok"], f"12a: {name} {mesh_name} {schedule}: {rec.get('error')}")
+        n, _, j, _ = dryrun.IM_CELLS[name]
+        by_kind = rec["collectives"]["by_kind"]
+        if schedule == "ring":
+            want = 3 * (grid.mu_v - 1) * (n // grid.mu_v) * (j // grid.mu_s)
+            check(by_kind["collective-permute"] == want,
+                  f"12a: {name} {mesh_name}: permute {by_kind} is not {want}")
+        roof = Roofline(name, rec["shape"], mesh_name, rec["chips"], rec["flops"],
+                        rec["bytes_accessed"], rec["wire_bytes"], 0.0)
+        log(f"[12a] {name} {mesh_name} {schedule}: per device wire "
+            + ", ".join(f"{kind} {b:.6g} B" for kind, b in sorted(by_kind.items()))
+            + f"; flops {rec['flops']:.6g}, bytes_accessed {rec['bytes_accessed']:.6g}; "
+            + ", ".join(f"{key} {v}" for key, v in rec["memory"].items())
+            + f"; roofline compute {roof.t_compute:.6g}s, memory {roof.t_memory:.6g}s, "
+            f"collective {roof.t_collective:.6g}s -> {roof.bottleneck}; dry run "
+            f"{rec['compile_s']}s")
+        records.append(rec)
+
+    # (b) the dry program of each phase 10 (a) rank's partition against its run
+    for r, rk in enumerate(mesh["ranks"]):
+        a = rk["a"]
+        dry = a["dry"]
+        real = {kind: (v["calls"], v["bytes_sent"]) for kind, v in a["stats"]["exchange"].items()}
+        check(dry["exchange"] == real, f"12b: rank {r}: dry exchanges {dry['exchange']} are "
+              f"not the run's {real}")
+        # the partition's sampling (fused_sample) runs before the rank program
+        program = {name: c for name, c in a["launches"].items() if name != "fused_sample"}
+        check(dry["launches"] == program, f"12b: rank {r}: dry launches {dry['launches']} "
+              f"are not the run's {program}")
+    a = mesh["ranks"][0]["a"]
+    dry = a["dry"]
+    predicted = dry["argument_bytes"] + dry["temp_bytes"]
+    log(f"[12b] phase 10 (a), every rank: the dry program times the run's sweeps "
+        f"({a['propagate_iters']} build, {a['stats']['cascade_sweeps']} cascade, "
+        f"{a['stats']['rebuild_sweeps']} rebuild, K={len(a['seeds'])}) equals its exchanges "
+        f"and launches; rank 0: " + "; ".join(f"{kind} {c} calls, {b} B"
+                                              for kind, (c, b) in dry["exchange"].items())
+        + f"; launches {dry['launches']}; dry program {dry['host_s']:.3f}s")
+    log(f"[12b] rank 0 peak: predicted {predicted / 2**30:.3f} GiB (arguments "
+        f"{dry['argument_bytes'] / 2**30:.3f}, temp {dry['temp_bytes'] / 2**30:.3f}), "
+        f"measured max_memory_allocated {a['peak_bytes'] / 2**30:.3f} GiB (partition build "
+        f"included), ratio {a['peak_bytes'] / predicted:.3f}")
+
+    # (c) phase 4's single path once under the profiler
+    argv = ["--graph", FULL["graph"], "--setting", FULL["setting"], "--model",
+            FULL["model"], "--registers", str(FULL["registers"]), "--k", str(
+                len(full["seeds"]) if full else 50)]
+    torch.cuda.synchronize()
+    with _reuse_full_graph(im), contextlib.redirect_stdout(open(os.devnull, "w")), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = im.run(argv)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    if full:
+        check(list(got["seeds"]) == list(full["seeds"]), "12c: seeds differ from phase 4's")
+    total, rows = opprof.op_profile(prof, top=12)
+    _, every = opprof.op_profile(prof, top=1 << 30)
+    kernels_us = sum(v for _, v, _, name in every if any(k in name for k in KERNEL_SYMBOLS))
+    busy_us = opprof.device_busy_us(prof)
+    profiled = dict(wall_us=wall_us, busy_us=busy_us, device_us=total, kernels_us=kernels_us,
+                    top=[(share, v, c, name[:120]) for share, v, c, name in rows])
+    if not total:
+        log("[12c] the profiler recorded no device activity: not measured")
+    else:
+        log(f"[12c] phase 4's launcher under torch.profiler (CUDA activity): wall "
+            f"{wall_us / 1e6:.3f}s, device self time {total / 1e6:.4f}s, device busy "
+            f"{busy_us / 1e6:.4f}s = {busy_us / wall_us * 100:.2f}% of wall (idle "
+            f"{100 - busy_us / wall_us * 100:.2f}%); the port's kernels "
+            f"{kernels_us / total * 100:.2f}% of device time")
+        for share, v, c, name in rows:
+            log(f"[12c] {share * 100:6.2f}% {v / 1e3:10.3f} ms x{c:<6d} {name[:96]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[12] phase {phase_s:.1f}s")
+    return dict(records=records, profile=profiled, phase_s=phase_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10,11")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10,11,12")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2809,6 +2937,7 @@ def main(argv=None) -> int:
     if mesh_serve:
         for row in rows:   # and on the device-resident path, summed over its ranks
             row["launches_mesh_serve"] = int(mesh_serve["launches"].get(row["name"], 0))
+    dry = phase_dryrun(mesh, full) if "12" in phases else None
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
@@ -2816,7 +2945,7 @@ def main(argv=None) -> int:
         (OUT / "kernels.json").write_text(json.dumps(
             dict(rows=rows, full=full, serial=serial_out, serve=serve,
                  served_async=served_async, repair=repair, tuning=tuning, mesh=mesh,
-                 mesh_serve=mesh_serve, smi=smi),
+                 mesh_serve=mesh_serve, dryrun=dry, smi=smi),
             indent=1,
             default=str))
         print(json.dumps({"kernels": rows}))

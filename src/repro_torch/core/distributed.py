@@ -275,8 +275,9 @@ class _RankState:
 
     # -- the round's steps ---------------------------------------------------
 
-    def select(self, total_regs: int):
-        """The grid's minimum-original-id argmax: ``(seed vertex, gain)``."""
+    def _argmax_pairs(self, total_regs: int) -> torch.Tensor:
+        """Every vertex shard's (best estimate, its minimum original id) as
+        float64 pairs, ``(mu_v, 2)`` on this rank's device."""
         mesh, part = self.mesh, self.part
         sums = ops.cardinality_stats(self.m)
         parts = mesh.exchange.all_gather(sums, mesh.sim_group, part.mu_s)
@@ -290,11 +291,15 @@ class _RankState:
         seed = torch.where(est == best, self.owned, part.n_pad).min()
         # float64 holds a float32 and an int32 id exactly
         pair = torch.stack([best.to(torch.float64), seed.to(torch.float64)])
-        pairs = mesh.exchange.all_gather(pair, mesh.vertex_group, part.mu_v).cpu()
+        return mesh.exchange.all_gather(pair, mesh.vertex_group, part.mu_v)
+
+    def select(self, total_regs: int):
+        """The grid's minimum-original-id argmax: ``(seed vertex, gain)``."""
+        pairs = self._argmax_pairs(total_regs).cpu()
         bests = pairs[:, 0].to(torch.float32)
         gain = bests.max()
         s_global = int(torch.where(bests == gain, pairs[:, 1],
-                                   float(part.n_pad)).min().item())
+                                   float(self.part.n_pad)).min().item())
         return s_global, np.float32(gain.item())
 
     def commit(self, seed_v: int) -> None:

@@ -49,7 +49,9 @@ def _check(acc: torch.Tensor, block: torch.Tensor, rows: EdgeRows, x: torch.Tens
                          f"got {block.dtype} {tuple(block.shape)}")
     if block.device != acc.device:
         raise ValueError(f"acc and block must share a device: {acc.device}, {block.device}")
-    if acc.untyped_storage().data_ptr() == block.untyped_storage().data_ptr():
+    # meta tensors (the dry run) have no memory to share
+    if acc.device.type != "meta" and (acc.untyped_storage().data_ptr()
+                                      == block.untyped_storage().data_ptr()):
         raise ValueError("acc and block must not share memory (the merge reads block "
                          "while it writes acc)")
 

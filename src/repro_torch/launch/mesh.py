@@ -75,7 +75,12 @@ and the shard repair in ``core/distributed.py``; a backend's cold call in
   ``make_mesh`` on a controller outside an operation raises, as it would
   otherwise wait on followers that never join.
 
-``make_production_mesh`` belongs to the dry run, which is not ported yet.
+**The dry run** (``launch.dryrun``) lowers for grids no process group can
+host. ``make_production_mesh`` returns the reference's production grids as a
+``MeshShape``, a shape and axis names alone; ``dry_mesh`` gives one rank's
+view of such a grid, a ``ProcessMesh`` on the ``meta`` device whose
+``DryExchange`` sends nothing and records each collective for
+``utils.collectives``.
 """
 from __future__ import annotations
 
@@ -98,6 +103,7 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.obs import trace
+from repro_torch.utils.collectives import CollectiveRecord
 
 #: seconds a collective may wait before the run fails
 DEFAULT_TIMEOUT_S = 300.0
@@ -313,6 +319,72 @@ class Exchange:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """A group of a dry rank's mesh: its size; nothing is sent on it."""
+
+    size: int
+
+
+class DryExchange(Exchange):
+    """The collectives of a dry rank (``launch.dryrun``): nothing is sent.
+
+    Every call counts through ``_count`` as the real one does (the call, the
+    bytes this rank would send, 0 seconds), so a dry ``summary()`` compares
+    field for field with a real rank's. Each call also appends a
+    ``CollectiveRecord`` (kind, payload bytes, group size, the shape sent)
+    to ``records``, for the ring formulas of ``utils.collectives``; the
+    payload is the result's bytes, as the reference's HLO counts it: the
+    ring block, the gathered tensor, the reduced value, every chunk of a
+    scatter or a gather. Results are ``meta`` tensors of the real shapes;
+    ``all_reduce`` returns 0. ``rank`` is this rank's global rank (a
+    scatter's source and a gather's destination send nothing to
+    themselves); ``world_size`` the size of the ``None`` group."""
+
+    def __init__(self, world_size: int, rank: int = 0):
+        super().__init__("dry", torch.device("meta"))
+        self.world_size, self.rank = int(world_size), int(rank)
+        self.records: list = []
+
+    def _record(self, kind: str, payload: int, group_size: int, shape, sent: int) -> None:
+        self.records.append(CollectiveRecord(kind, int(payload), int(group_size),
+                                             tuple(shape)))
+        self._count(kind, sent, 0.0)
+
+    def _size(self, group) -> int:
+        return self.world_size if group is None else group.size
+
+    def ring_shift(self, block: torch.Tensor, out: torch.Tensor, *, send_to: int,
+                   recv_from: int) -> torch.Tensor:
+        self._record("ring_shift", block.nbytes, 2, block.shape, block.nbytes)
+        return out
+
+    def all_gather(self, t: torch.Tensor, group, size: int) -> torch.Tensor:
+        nbytes = t.nbytes
+        self._record("all_gather", size * nbytes, size, t.shape, nbytes if size > 1 else 0)
+        return torch.empty((size, *t.shape), dtype=t.dtype, device="meta")
+
+    def all_reduce(self, value: int, op, group=None) -> int:
+        self._record("all_reduce", 8, self._size(group), (1,), 8)
+        return 0
+
+    def all_reduce_max(self, t: torch.Tensor, group) -> torch.Tensor:
+        self._record("all_reduce_max", t.nbytes, self._size(group), t.shape, t.nbytes)
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def scatter(self, chunks, out: torch.Tensor, group, *, src: int = 0) -> torch.Tensor:
+        size = self._size(group)
+        sent = (sum(c.nbytes for c in chunks) - out.nbytes) if self.rank == src else 0
+        self._record("scatter", size * out.nbytes, size, out.shape, sent)
+        return out
+
+    def gather(self, t: torch.Tensor, group, *, dst: int = 0) -> Optional[torch.Tensor]:
+        size = self._size(group)
+        mine = self.rank == dst
+        self._record("gather", size * t.nbytes, size, t.shape, 0 if mine else t.nbytes)
+        return torch.empty((size, *t.shape), dtype=t.dtype, device="meta") if mine else None
+
+
 @dataclasses.dataclass
 class ProcessMesh:
     """One rank's view of a ``(mu_v, mu_s)`` process grid (module doc)."""
@@ -470,6 +542,72 @@ def make_im_mesh(devices: int, *, mu_v: int = 0, device=None) -> ProcessMesh:
     if devices % mu_v != 0:
         raise ValueError(f"--devices {devices} not divisible by mu_v={mu_v}")
     return make_mesh((mu_v, devices // mu_v), ("data", "model"), device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A device grid described by its shape alone, as the dry run lowers for
+    it: no process group (one process cannot host 256 or 512 ranks). The
+    ``vertex_axis`` holds the vertex shards (``mu_v``); the other axes, in
+    their order, flatten row-major into the sim shards (``mu_s``, their
+    product)."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    vertex_axis: str = "data"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axis_names) or self.vertex_axis not in self.axis_names:
+            raise ValueError(f"mesh shape {self.shape} and axes {self.axis_names} must pair "
+                             f"up and hold the vertex axis {self.vertex_axis!r}")
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    @property
+    def sim_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axis_names if a != self.vertex_axis)
+
+    @property
+    def mu_v(self) -> int:
+        return self.axis_size(self.vertex_axis)
+
+    @property
+    def mu_s(self) -> int:
+        return math.prod(self.axis_size(a) for a in self.sim_axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production grids: ``(16, 16)`` over ``("data",
+    "model")`` (256 devices) or ``(2, 16, 16)`` over ``("pod", "data",
+    "model")`` (512 devices, 2 pods)."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+def dry_mesh(grid: MeshShape, coord: Tuple[int, int] = (0, 0)) -> ProcessMesh:
+    """Rank ``coord``'s (``(v, s)``) view of ``grid`` for the dry run: a
+    ``ProcessMesh`` on the ``meta`` device whose exchange is a
+    ``DryExchange`` and whose groups are ``DryGroup`` sizes. Its axes put
+    the vertex axis first and the sim axes after it in the grid's order
+    (``(2, 16, 16)`` over ``("pod", "data", "model")`` becomes ``(16, 2,
+    16)`` over ``("data", "pod", "model")``): the order ``make_mesh`` and
+    the mesh program take, with the same sim shards."""
+    axes = (grid.vertex_axis, *grid.sim_axes)
+    shape = tuple(grid.axis_size(a) for a in axes)
+    v, s = coord
+    rank = v * grid.mu_s + s
+    return ProcessMesh(shape=shape, axis_names=axes, rank=rank, coord=(v, s),
+                       device=torch.device("meta"),
+                       exchange=DryExchange(grid.size, rank),
+                       vertex_group=DryGroup(grid.mu_v), sim_group=DryGroup(grid.mu_s),
+                       grid_group=DryGroup(grid.size), world_size=grid.size,
+                       devices=("meta",) * grid.size)
 
 
 def shutdown_world() -> None:

@@ -40,11 +40,12 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 def test_walk_covers_the_host_modules():
     """The source scan above covers the presets, the utilities, the shard
-    profiles, the supervisor and the mesh backend's modules."""
+    profiles, the supervisor, the mesh backend's modules and the dry run's."""
     files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"configs/__init__.py", "configs/difuser_workloads.py", "utils/__init__.py",
             "utils/roofline.py", "obs/shardprof.py", "launch/ft.py", "launch/mesh.py",
-            "core/distributed.py", "runtime/mesh.py"} <= files
+            "core/distributed.py", "runtime/mesh.py", "launch/dryrun.py",
+            "utils/collectives.py", "utils/opprof.py", "kernels/cost.py"} <= files
 
 
 @pytest.fixture
@@ -141,10 +142,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_dispatch_rejects_other_devices():
+    """CUDA, the CPU and ``meta`` (the dry run's shape functions,
+    ``tests/test_torch_dryrun.py``) are dispatched; any other device raises
+    before anything reads the tensor."""
     from repro_torch.kernels import ops
 
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.sketch_fill(torch.zeros((8, 32), dtype=torch.int8, device="meta"))
+        ops.sketch_fill(type("OnXpu", (), {"device": torch.device("xpu")})())
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

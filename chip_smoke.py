@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,4,4b,10  # the mesh backend (10 needs 4, 4b)
     python3 chip_smoke.py --phases 1,6,11  # device-resident serving (11 needs 6)
     python3 chip_smoke.py --phases 1,4,4b,10,12  # the dry run (12 needs 10)
+    python3 chip_smoke.py --phases 1,13   # FASST's partition and Table 5-7 metrics
 
 Phases (each raises on failure; none is caught):
 
@@ -48,6 +49,8 @@ Phases (each raises on failure; none is caught):
 5. each kernel at phase 4's and 4b's shapes: time (CUDA events), its plain
    version's time, the largest difference between the two, and the bound
    (``kernels.cost``'s operations and bytes over ``utils.roofline``'s roofs);
+   ``sketch_fill`` also with row ids at 4b's ``n_loc x j_loc`` (a mesh
+   rank's owned-rows fill);
    for the sweeps and the serial ring's merges also their work lists
    (items, split rows, partials, longest item) and the bytes they gather;
    one ``bucket_propagate`` launch over each propagate bucket of a ring
@@ -121,7 +124,12 @@ Phases (each raises on failure; none is caught):
    0's exchange spans; (b) the allgather schedule at K = 8, equal to the
    first 8 rounds of (a); (c) ``MeshBackend.build_matrix`` at J = 512,
    byte-equal to the single path's matrix; (d) a world of 1 on NCCL at
-   rmat:14, J = 256, K = 8, seeds equal to the single path's; (e) ``python
+   rmat:14, J = 256, K = 8, seeds equal to the single path's; in (a) each
+   rank's state construction fills only its ``n_loc`` owned rows, by row
+   ids, and its peak (split into the partition's build, the state's
+   construction and the rest) stays within 1 % of
+   ``MESH_WHOLE_FILL_PEAK_GIB``, the peak when a rank filled the whole
+   ``n_pad x j_loc`` matrix; (e) ``python
    -m torch.distributed.run --nproc-per-node 4 -m repro_torch im --devices 4
    --backend mesh`` at rmat:16, seeds equal to the serial backend's. The
    shared-card world time-slices one card and exchanges through host
@@ -163,7 +171,20 @@ Phases (each raises on failure; none is caught):
    (arguments and temp) beside its ``max_memory_allocated``, not a gate;
    (c) phase 4's launcher once under ``torch.profiler`` with CUDA activity:
    the top 12 kernels by device time (``utils.opprof``), the port's
-   kernels' share of it, and device-busy time over wall time.
+   kernels' share of it, and device-busy time over wall time. Gates: every
+   record's temp at most a quarter of the whole-matrix fill's
+   (``WHOLE_FILL_TEMP_GB``: a rank fills its owned rows only) and its
+   selection bytes (the all-reduce kind) within 10 % of the reference's
+   compiled program's (``REF_ALL_REDUCE``: an ordered sum, not an
+   all-gather of every shard's sums);
+13. FASST's partition and its Table 5-7 metrics at full width (rmat:20,
+   R = 1024, ``mu`` 4 and 8, ``fasst`` and ``naive``): ``core.fasst``'s
+   ``build_partition`` (edge counts, ``E_max``), ``max_shard_fraction``,
+   ``duplication_histogram`` and ``lane_fill_rate`` (lanes of 32 and 128, x
+   sorted and unsorted), each timed, on the kernel path and on the plain
+   path: arrays byte-equal, floats equal, the counters showing which path
+   ran; and ``core.sketch.fill_registers`` with row ids against
+   ``sketch_fill_plain`` with the same ids.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
@@ -181,7 +202,9 @@ run, ``launches_serve`` phase 6's, ``launches_async`` phase 7's
 launcher and async engines, ``launches_repair`` phase 8's repairs,
 ``launches_tune`` phase 9's tuning and tuned runs, ``launches_mesh``
 phase 10 (a)'s ranks, summed, ``launches_mesh_serve`` phase 11's ranks
-from placement to the mesh repair, summed), the
+from placement to the mesh repair, summed, ``launches_fasst`` phase 13's
+kernel path; the ``sketch_fill`` row also carries phase 5's owned-rows fill,
+``ids_*``), the
 ``nvidia-smi`` line, and last the contract line ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository around it, it
 exits non-zero before printing any. Longer output goes to
@@ -1181,6 +1204,28 @@ def phase_ring_timings(serial: dict) -> list:
         _time_ms(lambda: fused_sample.fused_sample_cuda(*sample, x, variant=variant), reps=5),
         _time_ms(lambda: fused_sample.fused_sample_plain(*sample, x, variant=variant), reps=1),
         cost.bound_ms(cost.fused_sample(num_e, j, variant))))
+
+    # a mesh rank's fill: its owned rows (vertex shard 0's of 4b's plan, by
+    # their original ids) at sim shard 1's register slots
+    from repro_torch.core.sketch import blank_matrix
+    from repro_torch.kernels import sketch_fill
+
+    ids = torch.from_numpy(part.owned_ids[0].astype(np.int64)).cuda()
+    m = blank_matrix(part.n_loc, j, "cuda")
+    fill = dict(ids=ids, reg_offset=j, seed=cfg.seed)
+    err = _max_abs_err(sketch_fill.sketch_fill_cuda(m, **fill),
+                       sketch_fill.sketch_fill_plain(m, **fill))
+    check(err == 0.0, "sketch_fill with row ids differs from its plain version")
+    bound_ms, bound_by = cost.bound_ms(cost.sketch_fill(*m.shape, id_bytes=8))
+    serial["fill_ids"] = dict(
+        ids_max_abs_err=err, ids_ms=_time_ms(lambda: sketch_fill.sketch_fill_cuda(m, **fill),
+                                             reps=5),
+        ids_plain_ms=_time_ms(lambda: sketch_fill.sketch_fill_plain(m, **fill), reps=1),
+        ids_bound_ms=bound_ms, ids_bound_by=bound_by, ids_shape=tuple(m.shape))
+    f = serial["fill_ids"]
+    log(f"[5] sketch_fill with row ids (a mesh rank's owned rows, n_loc x j_loc "
+        f"{tuple(m.shape)}, int64 ids): {f['ids_ms']:.4f} ms (plain {f['ids_plain_ms']:.3f} "
+        f"ms, bound {bound_ms:.4f} ms by {bound_by}), max_abs_err {err}")
     return out
 
 
@@ -2251,6 +2296,52 @@ MESH_BUILD_REGS = 512
 MESH_NCCL = dict(graph="rmat:14", registers=256, k=8)
 MESH_LAUNCHER_GRAPH = "rmat:16"
 MESH_TIMEOUT_S = 600.0
+# (a)'s rank peak (max_memory_allocated, GiB) when each rank filled the whole
+# n_pad x j_loc matrix and then kept its owned rows (the port at commit
+# 79c500f, on this card; the partition's build sets it): no rank may go
+# more than 1 % above it
+MESH_WHOLE_FILL_PEAK_GIB = 3.112
+
+
+@contextlib.contextmanager
+def _state_peaks(marks: dict):
+    """Split a mesh run's device peak at the rank state's construction:
+    ``prep`` is the peak before it (the partition's build), ``state`` the
+    peak of the construction above what was allocated when it began
+    (``base``). The peak counter restarts at the construction, so
+    ``max_memory_allocated`` afterwards covers the state, the build and the
+    rounds. ``fills`` lists the shape of each ``sketch_fill`` the
+    construction launched and whether it took row ids."""
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ops
+
+    init, fill = distributed._RankState.__init__, ops.sketch_fill
+    marks["fills"] = []
+
+    def counted_fill(m, **kw):
+        marks["fills"].append((tuple(m.shape), kw.get("ids") is not None))
+        return fill(m, **kw)
+
+    def measured(self, *a, **k):
+        torch.cuda.synchronize()
+        marks["prep"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks["base"] = torch.cuda.memory_allocated()
+        ops.sketch_fill = counted_fill
+        try:
+            init(self, *a, **k)
+        finally:
+            ops.sketch_fill = fill
+        torch.cuda.synchronize()
+        marks["state"] = torch.cuda.max_memory_allocated() - marks["base"]
+
+    distributed._RankState.__init__ = measured
+    try:
+        yield marks
+    finally:
+        distributed._RankState.__init__ = init
 
 
 def _span_sums(events) -> dict:
@@ -2281,7 +2372,9 @@ def _mesh_rank(rank: int, g, k: int) -> dict:
             rec.clear()
             rec.start()
         t0 = time.perf_counter()
-        rep = run(g, kk, sp, device="cuda")
+        marks: dict = {}
+        with _state_peaks(marks) if tag == "a" else contextlib.nullcontext():
+            rep = run(g, kk, sp, device="cuda")
         wall = time.perf_counter() - t0
         spans = {}
         if rank == 0:
@@ -2292,8 +2385,12 @@ def _mesh_rank(rank: int, g, k: int) -> dict:
                         scores=res.scores.tolist(), propagate_iters=res.propagate_iters,
                         stats=res.stats, wall_s=wall, spans=spans,
                         launches=dict(counters.LAUNCHES), plain=dict(counters.PLAIN_CALLS),
-                        peak_bytes=torch.cuda.max_memory_allocated(),
-                        device=rep.device, describe=rep.partition.stats().describe())
+                        peak_bytes=max(torch.cuda.max_memory_allocated(),
+                                       marks.get("prep", 0)),
+                        rest_peak=torch.cuda.max_memory_allocated(), marks=marks,
+                        n_loc=rep.partition.n_loc, n_pad=rep.partition.n_pad,
+                        j_loc=rep.partition.j_loc, device=rep.device,
+                        describe=rep.partition.stats().describe())
         if tag == "a":   # phase 12 (b)'s prediction of this run
             out[tag]["dry"] = _dry_prediction(rank, rep)
     # (c) the build alone, against the single path's matrix at the same J
@@ -2389,6 +2486,27 @@ def phase_mesh(full: dict, serial: dict, k: int) -> dict:
         log(f"[10a] rank {r} exchanges: " + "; ".join(
             f"{kind} {v['calls']} calls, {v['bytes_sent'] / 1e9:.3f} GB sent, "
             f"{v['seconds']:.3f}s" for kind, v in ex.items()))
+    from repro_torch.core.sketch import padded_regs
+
+    for r, rk in enumerate(ranks):
+        ra, gib = rk["a"], 2**30
+        mk, block = ra["marks"], ra["n_loc"] * ra["j_loc"]
+        whole = 2 * ra["n_pad"] * ra["j_loc"]
+        peak = ra["peak_bytes"] / gib
+        log(f"[10a] rank {r} peak {peak:.4f} GiB (whole-matrix fill: "
+            f"{MESH_WHOLE_FILL_PEAK_GIB} GiB): the partition's build {mk['prep'] / gib:.4f} "
+            f"GiB; the rank state's construction (the fill, the block, the ring buffers) "
+            f"{mk['state'] / gib:.4f} GiB above the {mk['base'] / gib:.4f} GiB it began "
+            f"with, {mk['state'] / block:.2f} n_loc x j_loc blocks (the whole matrix and its "
+            f"fill alone: {whole / gib:.4f} GiB); from the state on (build, rounds) "
+            f"{ra['rest_peak'] / gib:.4f} GiB")
+        # the fill ran on the rank's owned rows, keyed on their ids (at this
+        # 2 x 2 grid the whole matrix is two blocks, so the peaks cannot tell)
+        want_fill = [((ra["n_loc"], padded_regs(ra["j_loc"])), True)]
+        check(mk["fills"] == want_fill, f"10a: rank {r}'s state filled {mk['fills']}, not "
+              f"its owned rows {want_fill}")
+        check(peak <= 1.01 * MESH_WHOLE_FILL_PEAK_GIB,
+              f"10a: rank {r}'s peak {peak:.4f} GiB is above the whole-matrix fill's")
     spans = ranks[0]["a"]["spans"]
     log("[10a] rank 0 spans: " + ", ".join(
         f"{n} {t:.3f}s x{c}" for n, (c, t) in sorted(spans.items(), key=lambda i: -i[1][1])))
@@ -2775,6 +2893,23 @@ def phase_mesh_serving() -> dict:
 # phase 12 (a): the reference's six production records and twitter under the
 # allgather schedule; (c): the CUDA names of the port's kernels
 DRYRUN_EXTRA = ("difuser-twitter", "pod16x16", "allgather")
+# each record's temp bytes (GB) when a rank filled the whole n_pad x j_loc
+# matrix and its fill before keeping its rows (the port's dry run at commit
+# 79c500f): the owned-rows fill keeps every record at a quarter of it or less
+WHOLE_FILL_TEMP_GB = {
+    ("difuser-livejournal", "pod16x16"): 2.148, ("difuser-twitter", "pod16x16"): 8.594,
+    ("difuser-friendster", "pod16x16"): 17.184, ("difuser-livejournal", "pods2x16x16"): 1.074,
+    ("difuser-twitter", "pods2x16x16"): 4.299, ("difuser-friendster", "pods2x16x16"): 8.594}
+# the reference's all-reduce bytes per device (its compiled program, XLA's
+# CPU lowering: the selection's psum and two int flags), by record; the
+# port's selection sum must move them within 10 %
+REF_ALL_REDUCE = {
+    ("difuser-livejournal", "pod16x16"): 7_864_351.875,
+    ("difuser-twitter", "pod16x16"): 62_914_591.875,
+    ("difuser-friendster", "pod16x16"): 62_914_591.875,
+    ("difuser-livejournal", "pods2x16x16"): 8_126_495.938,
+    ("difuser-twitter", "pods2x16x16"): 65_011_743.938,
+    ("difuser-friendster", "pods2x16x16"): 65_011_743.938}
 KERNEL_SYMBOLS = ("sketch_fill_kernel", "cardinality_kernel", "item_sweep", "item_combine",
                   "fused_sample_kernel")
 
@@ -2807,6 +2942,18 @@ def phase_dryrun(mesh: dict, full) -> dict:
             want = 3 * (grid.mu_v - 1) * (n // grid.mu_v) * (j // grid.mu_s)
             check(by_kind["collective-permute"] == want,
                   f"12a: {name} {mesh_name}: permute {by_kind} is not {want}")
+            temp_gb = rec["memory"]["temp_bytes"] / 1e9
+            whole = WHOLE_FILL_TEMP_GB[(name, mesh_name)]
+            check(temp_gb <= whole / 4, f"12a: {name} {mesh_name}: temp {temp_gb:.4f} GB is "
+                  f"over a quarter of the whole-matrix fill's {whole} GB")
+            ref_ar = REF_ALL_REDUCE[(name, mesh_name)]
+            check(abs(by_kind["all-reduce"] - ref_ar) <= 0.1 * ref_ar,
+                  f"12a: {name} {mesh_name}: selection bytes {by_kind['all-reduce']} are not "
+                  f"within 10 % of the reference's {ref_ar}")
+            log(f"[12a] {name} {mesh_name}: temp {temp_gb:.4f} GB (whole-matrix fill "
+                f"{whole} GB, ratio {temp_gb / whole:.4f}); all-reduce "
+                f"{by_kind['all-reduce']} B (reference {ref_ar} B, ratio "
+                f"{by_kind['all-reduce'] / ref_ar:.6f})")
         roof = Roofline(name, rec["shape"], mesh_name, rec["chips"], rec["flops"],
                         rec["bytes_accessed"], rec["wire_bytes"], 0.0)
         log(f"[12a] {name} {mesh_name} {schedule}: per device wire "
@@ -2877,9 +3024,134 @@ def phase_dryrun(mesh: dict, full) -> dict:
     return dict(records=records, profile=profiled, phase_s=phase_s)
 
 
+# -------------------------------------------------------------- phase 13 ----
+
+# FASST at full width: phase 4's graph, the reference launcher's R = 1024,
+# sample shards of the 16 x 16 (mu 4 of its pods) and 8-way grids
+FASST = dict(registers=1024, mus=(4, 8), methods=("fasst", "naive"), lane_widths=(32, 128))
+FASST_FILL = dict(rows=1 << 19, regs=512, id_space=1 << 20)
+
+
+def _fasst_metrics(g, x, mu: int, method: str) -> dict:
+    """Phase 13's metrics of one (mu, method) on the current ``ops``, each
+    timed (host clock, ending in a device sync)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import fasst
+
+    out, secs = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return val
+
+    part = timed("build_partition", lambda: fasst.build_partition(
+        g, x, mu, method=method, device="cuda"))
+    out["partition"] = part
+    out["max_shard_fraction"] = timed("max_shard_fraction",
+                                      lambda: fasst.max_shard_fraction(g, part))
+    out["duplication_histogram"] = timed("duplication_histogram",
+                                         lambda: fasst.duplication_histogram(g, part,
+                                                                             device="cuda"))
+    for lw in FASST["lane_widths"]:
+        for order, xs in (("sorted", np.sort(x)), ("unsorted", x)):
+            out[f"lane_fill_{lw}_{order}"] = timed(
+                f"lane_fill_{lw}_{order}",
+                lambda: fasst.lane_fill_rate(g, xs, lane_width=lw, device="cuda"))
+    out["seconds"] = secs
+    return out
+
+
+def _same_fasst(kern: dict, plain: dict, what: str) -> None:
+    a, b = kern["partition"], plain["partition"]
+    for field in ("x_shards", "perm", "edge_index", "edge_counts"):
+        x, y = getattr(a, field), getattr(b, field)
+        check(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(),
+              f"{what}: {field} differs between the kernel and the plain path")
+    check(kern["duplication_histogram"].tobytes() == plain["duplication_histogram"].tobytes(),
+          f"{what}: histograms differ")
+    for key, val in kern.items():
+        if isinstance(val, float):
+            check(val == plain[key], f"{what}: {key} {val} != {plain[key]}")
+
+
+def phase_fasst() -> dict:
+    """Phase 13: FASST's partition and its Table 5-7 metrics at full width,
+    kernel path against plain path; ``fill_registers`` with row ids."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.sampling import make_x_vector
+    from repro_torch.core.sketch import blank_matrix, fill_registers
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.sketch_fill import sketch_fill_plain
+
+    t_phase = time.perf_counter()
+    g = full_graph()
+    x = make_x_vector(FASST["registers"], seed=0)
+    launches: dict = {}
+    results = {}
+    for mu in FASST["mus"]:
+        for method in FASST["methods"]:
+            what = f"13: mu={mu} {method}"
+            counters.reset()
+            kern = _fasst_metrics(g, x, mu, method)
+            check(not counters.PLAIN_CALLS and set(counters.LAUNCHES) == {"fused_sample"},
+                  f"{what} kernel path: launches {dict(counters.LAUNCHES)}, plain "
+                  f"{dict(counters.PLAIN_CALLS)}")
+            for name, c in counters.LAUNCHES.items():
+                launches[name] = launches.get(name, 0) + c
+            counters.reset()
+            with plain_ops():
+                plain = _fasst_metrics(g, x, mu, method)
+            check(not counters.LAUNCHES and set(counters.PLAIN_CALLS) == {"fused_sample"},
+                  f"{what} plain path launched {dict(counters.LAUNCHES)}")
+            _same_fasst(kern, plain, what)
+            part = kern["partition"]
+            hist = kern["duplication_histogram"]
+            log(f"[13] mu={mu} {method}: edge_counts {part.edge_counts.tolist()}, E_max "
+                f"{part.edge_index.shape[1]} (of {g.m_real} real edges); max_shard_fraction "
+                f"{kern['max_shard_fraction']!r}; duplication_histogram (k = 0..{mu}) "
+                f"{[float(v) for v in hist]}")
+            log(f"[13] mu={mu} {method}: lane_fill_rate " + ", ".join(
+                f"{lw} {order} {kern[f'lane_fill_{lw}_{order}']!r}"
+                for lw in FASST["lane_widths"] for order in ("sorted", "unsorted")))
+            times = {path: ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+                     for path, res in (("kernel", kern), ("plain", plain))}
+            log(f"[13] mu={mu} {method}: seconds, kernel path {times['kernel']}; plain path "
+                f"{times['plain']}; kernel and plain path byte-equal")
+            results[f"{mu}_{method}"] = dict(
+                edge_counts=part.edge_counts.tolist(), e_max=int(part.edge_index.shape[1]),
+                max_shard_fraction=kern["max_shard_fraction"],
+                duplication_histogram=[float(v) for v in hist],
+                lane_fill={k: v for k, v in kern.items() if k.startswith("lane_fill")},
+                seconds=kern["seconds"], plain_seconds=plain["seconds"])
+    # fill_registers with row ids on the card against the plain fill
+    rows, regs = FASST_FILL["rows"], FASST_FILL["regs"]
+    ids = torch.from_numpy(np.random.default_rng(0).permutation(
+        FASST_FILL["id_space"])[:rows].astype(np.int64)).cuda()
+    counters.reset()
+    got = fill_registers(rows, regs, reg_offset=regs, seed=0, ids=ids, device="cuda")
+    check(dict(counters.LAUNCHES) == {"sketch_fill": 1} and not counters.PLAIN_CALLS,
+          f"13: fill_registers ran {dict(counters.LAUNCHES)} {dict(counters.PLAIN_CALLS)}")
+    want = sketch_fill_plain(blank_matrix(rows, regs, "cuda"), ids=ids, reg_offset=regs,
+                             seed=0)
+    check(torch.equal(got, want), "13: fill_registers with row ids differs from the plain "
+          "fill")
+    log(f"[13] fill_registers({rows}, {regs}, ids of {FASST_FILL['id_space']}) on the card "
+        f"equals sketch_fill_plain with the same ids")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[13] phase {phase_s:.1f}s")
+    return dict(launches=launches, results=results, phase_s=phase_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10,11,12,13")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2913,6 +3185,9 @@ def main(argv=None) -> int:
         rows += phase_timings(full)
     if "5" in phases and serial:
         rows += phase_ring_timings(serial)
+        for row in rows:   # the owned-rows fill beside the whole fill
+            if row["name"] == "sketch_fill":
+                row.update(serial["fill_ids"])
     serve = phase_serve() if "6" in phases else None
     if serve:
         for row in rows:   # launches of each kernel on the serving path too
@@ -2938,6 +3213,10 @@ def main(argv=None) -> int:
         for row in rows:   # and on the device-resident path, summed over its ranks
             row["launches_mesh_serve"] = int(mesh_serve["launches"].get(row["name"], 0))
     dry = phase_dryrun(mesh, full) if "12" in phases else None
+    fasst = phase_fasst() if "13" in phases else None
+    if fasst:
+        for row in rows:   # and on FASST's analysis (its kernel path)
+            row["launches_fasst"] = int(fasst["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
@@ -2945,7 +3224,7 @@ def main(argv=None) -> int:
         (OUT / "kernels.json").write_text(json.dumps(
             dict(rows=rows, full=full, serial=serial_out, serve=serve,
                  served_async=served_async, repair=repair, tuning=tuning, mesh=mesh,
-                 mesh_serve=mesh_serve, dryrun=dry, smi=smi),
+                 mesh_serve=mesh_serve, dryrun=dry, fasst=fasst, smi=smi),
             indent=1,
             default=str))
         print(json.dumps({"kernels": rows}))

@@ -18,3 +18,18 @@ Layout (module names follow ``repro``):
 
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
+
+#: the modules of the supported API surface, the reference's list
+IM_API_MODULES = (
+    "repro_torch.obs",
+    "repro_torch.runtime",
+    "repro_torch.core",
+    "repro_torch.diffusion",
+    "repro_torch.partition",
+    "repro_torch.service",
+    "repro_torch.tune",
+    "repro_torch.graphs",
+    "repro_torch.baselines",
+    "repro_torch.configs",
+    "repro_torch.launch.common",
+)

@@ -21,6 +21,12 @@ def make_live_sampler(g: Graph, model: str):
     return lambda rng: sampler(rng)[: g.m_real]
 
 
+def sample_live_mask(g: Graph, model: str, rng: np.random.Generator) -> np.ndarray:
+    """One live-edge sample (bool[m_real], graph order) of ``g`` under
+    ``model``: ``make_live_sampler`` drawn once."""
+    return make_live_sampler(g, model)(rng)
+
+
 def _bfs_reach(csr: CSR, sampled: np.ndarray, seeds: np.ndarray) -> int:
     """Number of vertices reachable from ``seeds`` over the sampled edges
     (``sampled``: bool[m] in CSR order)."""

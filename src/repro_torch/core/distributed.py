@@ -4,9 +4,11 @@ Counterpart of the reference's ``core/distributed.py``, whose one
 ``shard_map`` program becomes one process per ``(vertex, sim)`` shard of a
 ``launch.mesh.ProcessMesh``. Registers are split over the sim shards and
 vertices over the vertex shards; each rank holds one ``(n_loc, j_loc)``
-register block and the buckets of its own shard. Propagation reads remote
-registers, so a sweep walks the vertex ring: at step kk the rank merges the
-bucket whose reads live in the block it holds, then passes that block on.
+register block and the buckets of its own shard, and fills only the rows
+it owns, hashed by their original vertex ids (``sketch_fill``'s row-id
+operand). Propagation reads remote registers, so a sweep walks the vertex
+ring: at step kk the rank merges the bucket whose reads live in the block it
+holds, then passes that block on.
 
 How the reference's collectives map onto ``torch.distributed`` (each is a
 method of the mesh's ``Exchange``, timed and spanned there):
@@ -19,10 +21,12 @@ method of the mesh's ``Exchange``, timed and spanned there):
 * the fixpoints' ``psum`` of the changed flags: one int ``all_reduce(MAX)``
   over the grid, read once a sweep on the host, as the serial ring reads
   its flags;
-* the ``psum`` of the selection statistics over the sim axes: an
-  ``all_gather`` of each rank's ``(2, n_loc)`` float32 sums in the sim group,
-  added in shard order ``s = 0..mu_s-1`` (the serial ring's order; float32
-  addition is not associative, and a near-tie follows the order);
+* the ``psum`` of the selection statistics over the sim axes: the
+  exchange's ``ordered_sum`` of each rank's ``(2, n_loc)`` float32 sums in
+  the sim group, a reduce-scatter and an all-gather that add in shard order
+  ``s = 0..mu_s-1`` (the serial ring's order; float32 addition is not
+  associative, and a near-tie follows the order), moving an all-reduce's
+  bytes;
 * the argmax's ``all_gather`` of each vertex shard's best and seed: one
   gather of (best, seed) pairs over the vertex group, then the minimum
   original id among the equal bests;
@@ -165,11 +169,10 @@ class _RankState:
         self.c_width = [int(a.shape[-1]) for a in part.c_h]
         self.fresh = None
         if fill:
-            # the rows this rank owns, filled at its sim shard's register slots
-            canon = ops.sketch_fill(blank_matrix(part.n_pad, j_loc, dev),
-                                    reg_offset=reg_offset + s * j_loc, seed=cfg.seed)
-            self.fresh = canon.index_select(0, self.owned)
-            del canon
+            # the rows this rank owns, hashed by their original ids at its sim
+            # shard's register slots; no n_pad-row matrix exists on a rank
+            self.fresh = ops.sketch_fill(blank_matrix(part.n_loc, j_loc, dev), ids=self.owned,
+                                         reg_offset=reg_offset + s * j_loc, seed=cfg.seed)
         if block is not None:
             if tuple(block.shape) != (part.n_loc, j_loc):
                 raise ValueError(f"block {tuple(block.shape)} is not "
@@ -279,11 +282,9 @@ class _RankState:
         """Every vertex shard's (best estimate, its minimum original id) as
         float64 pairs, ``(mu_v, 2)`` on this rank's device."""
         mesh, part = self.mesh, self.part
-        sums = ops.cardinality_stats(self.m)
-        parts = mesh.exchange.all_gather(sums, mesh.sim_group, part.mu_s)
-        stat = parts[0].clone()
-        for s in range(1, part.mu_s):   # the psum over sim shards, in shard order
-            stat += parts[s]
+        # the psum over the sim shards, added in shard order
+        stat = mesh.exchange.ordered_sum(ops.cardinality_stats(self.m), mesh.sim_group,
+                                         part.mu_s)
         est = sketch.estimate_from_sums(stat, total_regs, estimator=self.cfg.estimator)
         est = torch.where(self.valid, est, torch.full((), -1.0, dtype=torch.float32,
                                                       device=self.device))

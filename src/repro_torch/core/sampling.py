@@ -8,8 +8,10 @@ Two halves:
 
 * numpy host functions on ``uint32`` arrays (``mix32``, ``edge_hash``,
   ``vertex_hash``, ``register_hash``, ``weight_to_threshold``,
-  ``make_x_vector``), copied from the reference package's
-  ``core/sampling.py`` so that both packages hash identically;
+  ``make_x_vector``, the two predicates ``fused_predicate`` and
+  ``remix_interval_predicate``, ``sample_mask`` and ``clz32``), copied from
+  the reference package's ``core/sampling.py`` so that both packages hash
+  and sample identically;
 * torch versions of ``mix32``, ``register_hash``, clz and the two
   predicates (``t_*``). PyTorch's ``uint32`` tensors lack ``>>``, ``-`` and ``<`` on
   the CPU, so these compute on ``int64`` tensors that hold values in
@@ -19,8 +21,13 @@ Two halves:
 """
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
 import torch
+
+#: what the predicates take: numpy arrays here, torch tensors in the ``t_*``
+Array = Union[np.ndarray, torch.Tensor]
 
 _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
@@ -80,6 +87,39 @@ def make_x_vector(num_samples: int, seed: int = 0) -> np.ndarray:
     """The random vector X = {X_1..X_R} (uint32)."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, 1 << 32, size=num_samples, dtype=np.uint64).astype(np.uint32)
+
+
+def fused_predicate(h: np.ndarray, lo: np.ndarray, width: np.ndarray,
+                    x: np.ndarray) -> np.ndarray:
+    """The edge-activation predicate of the threshold models (wc, ic, dic):
+    ``((X_r ^ h_e) - lo_e) mod 2^32 < width_e`` on uint32 operands, which
+    broadcast. With lo = 0 it is the paper's ``(X ^ h) < w * 2^32``."""
+    return ((h ^ x) - lo) < width
+
+
+def remix_interval_predicate(h: np.ndarray, lo: np.ndarray, width: np.ndarray,
+                             x: np.ndarray) -> np.ndarray:
+    """The interval predicate of lt, with an avalanche remix of the
+    per-(vertex, sample) uniform: ``(mix32(X_r ^ h_v) - lo_e) mod 2^32 <
+    width_e``. All in-edges of v share one uniform a sample, so at most one
+    fires."""
+    return (mix32(h ^ x) - lo) < width
+
+
+def sample_mask(edge_h: np.ndarray, thr: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """``bool[E, R]``: ``mask[e, r] = (X_r ^ h_e) < thr_e``."""
+    return (edge_h[:, None] ^ x[None, :]) < thr.astype(np.uint32)[:, None]
+
+
+def clz32(x: np.ndarray) -> np.ndarray:
+    """Count leading zeros of uint32 values (clz(0) = 32), int32."""
+    x = x.astype(np.uint32)
+    n = np.full(x.shape, 32, dtype=np.int32)
+    for shift in (16, 8, 4, 2, 1):
+        big = x >= (np.uint32(1) << np.uint32(shift))
+        n = np.where(big, n - shift, n)
+        x = np.where(big, x >> np.uint32(shift), x)
+    return n - x.astype(np.int32)
 
 
 # ---------------------------------------------------------------- torch ----

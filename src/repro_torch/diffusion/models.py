@@ -2,11 +2,20 @@
 
 Each model is host preprocessing in numpy (``edge_params``, copied from the
 reference package's ``diffusion/models.py`` so that both packages produce
-byte-identical ``(h, lo, thr)`` operands) plus the predicate form the device
-evaluates, named by ``variant``:
+byte-identical ``(h, lo, thr)`` operands) plus its ``predicate``, the numpy
+function of ``core.sampling`` the device evaluates, named there by
+``variant``:
 
-* ``INTERVAL`` (wc, ic, dic): ``((X_r ^ h_e) - lo_e) < thr_e``;
-* ``REMIX`` (lt): ``(mix32(X_r ^ h_v) - lo_e) < thr_e``.
+* ``fused_predicate``, ``INTERVAL`` (wc, ic, dic): ``((X_r ^ h_e) - lo_e) <
+  thr_e``;
+* ``remix_interval_predicate``, ``REMIX`` (lt): ``(mix32(X_r ^ h_v) - lo_e)
+  < thr_e``.
+
+``register_model(name, factory)`` adds a family, as in the reference, and
+``resolve`` caches one instance per spec. One thing the port cannot take
+where the reference does: the CUDA kernels compile the two predicates in, so
+a registered model's ``predicate`` must be one of these two functions;
+``resolve`` refuses any other, naming them.
 
 Each model also carries the Monte-Carlo hooks of the reference's zoo
 (``live_edge_probability``, ``mc_sampler``: numpy draws for the oracle of
@@ -25,7 +34,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from repro_torch.core.sampling import (INTERVAL, REMIX, edge_hash, vertex_hash,
+from repro_torch.core.sampling import (INTERVAL, REMIX, edge_hash, fused_predicate,
+                                       remix_interval_predicate, vertex_hash,
                                        weight_to_threshold)
 from repro_torch.diffusion.constants import DEFAULT_MODEL  # noqa: F401
 from repro_torch.graphs.structs import Graph
@@ -51,13 +61,23 @@ def _real_edge_mask(g: Graph) -> np.ndarray:
     return mask
 
 
+#: the predicates the kernels compile in, by their variant number
+VARIANTS = {fused_predicate: INTERVAL, remix_interval_predicate: REMIX}
+
+
 class DiffusionModel:
-    """A stateless model: host preprocessing plus its predicate variant."""
+    """A stateless model: host preprocessing plus its predicate (one of
+    ``VARIANTS``), whose kernel variant is ``variant``."""
 
     name: str = ""
     spec: str = ""
-    variant: int = INTERVAL
+    predicate = staticmethod(fused_predicate)
     context_free_edges: bool = True
+
+    @property
+    def variant(self) -> int:
+        """The kernels' compile-time variant of ``predicate``."""
+        return VARIANTS[self.predicate]
 
     def edge_params(self, g: Graph, *, seed: int = 0) -> EdgeParams:
         raise NotImplementedError
@@ -128,11 +148,15 @@ class DecayingIC(DiffusionModel):
         self.spec = spec
         self.decay = float(decay)
 
+    def edge_delay(self, g: Graph) -> np.ndarray:
+        """float64[m]: each edge's deterministic latency in [0, 1), from a
+        salted edge hash (an edge attribute, not sampling randomness)."""
+        return edge_hash(g.src, g.dst, seed=_DELAY_SALT).astype(np.float64) / _TWO32
+
     def live_edge_probability(self, g: Graph) -> np.ndarray:
-        delay = edge_hash(g.src, g.dst, seed=_DELAY_SALT).astype(np.float64) / _TWO32
         w = np.asarray(g.weight, dtype=np.float64).copy()
         w[g.m_real:] = 0.0
-        return w * np.exp(-self.decay * delay)
+        return w * np.exp(-self.decay * self.edge_delay(g))
 
     def edge_params(self, g: Graph, *, seed: int = 0) -> EdgeParams:
         w_eff = self.live_edge_probability(g).astype(np.float32)
@@ -148,7 +172,7 @@ class LinearThreshold(DiffusionModel):
     uniform ``mix32(X_r ^ vertex_hash(v))`` lands in at most one of them."""
 
     name = "lt"
-    variant = REMIX
+    predicate = staticmethod(remix_interval_predicate)
     context_free_edges = False
 
     def __init__(self, spec: str = "lt"):
@@ -214,20 +238,55 @@ def _no_param(cls):
     return make
 
 
-_REGISTRY: Dict[str, Callable[[str, str], DiffusionModel]] = {
-    "wc": _no_param(WeightedCascade),
-    "ic": lambda spec, param: UniformIC(spec, _float_param(param, 0.1, "ic probability")),
-    "lt": _no_param(LinearThreshold),
-    "dic": lambda spec, param: DecayingIC(spec, _float_param(param, 1.0, "dic decay")),
-}
+#: name -> factory(spec, param or None), in registration order
+_REGISTRY: Dict[str, Callable[[str, str], DiffusionModel]] = {}
+#: spec -> its instance (models are stateless)
+_RESOLVED: Dict[str, DiffusionModel] = {}
+
+
+def register_model(name: str, factory: Callable[[str, str], DiffusionModel]) -> None:
+    """Register a model family under ``name``: ``factory(spec, param)`` gets
+    the whole spec and its ``:<param>`` suffix (None where absent) and
+    returns an instance, whose ``predicate`` must be one of ``VARIANTS``."""
+    if name in _REGISTRY:
+        raise ValueError(f"diffusion model {name!r} already registered")
+    _REGISTRY[name] = factory
+    _RESOLVED.clear()
+
+
+def available_models() -> Tuple[str, ...]:
+    """The registered families' names, in registration order."""
+    return tuple(_REGISTRY)
 
 
 def resolve(spec: str) -> DiffusionModel:
-    """Resolve ``name`` or ``name:param`` to a model instance."""
+    """Resolve ``name`` or ``name:param`` to its instance, one per spec.
+    Raises ``ValueError`` where the model's predicate is not one the kernels
+    compile in (``fused_predicate``, or ``remix_interval_predicate`` for
+    lt)."""
     if not isinstance(spec, str) or not spec:
         raise TypeError(f"diffusion model spec must be a non-empty str, got {spec!r}")
+    hit = _RESOLVED.get(spec)
+    if hit is not None:
+        return hit
     name, sep, param = spec.partition(":")
     factory = _REGISTRY.get(name)
     if factory is None:
         raise KeyError(f"unknown diffusion model {name!r}; registered: {sorted(_REGISTRY)}")
-    return factory(spec, param if sep else None)
+    model = factory(spec, param if sep else None)
+    predicate = getattr(model, "predicate", None)
+    if predicate not in VARIANTS:
+        raise ValueError(
+            f"diffusion model {spec!r}: its predicate {predicate!r} is not one the CUDA "
+            "kernels compile in; use core.sampling.fused_predicate (threshold models) or "
+            "core.sampling.remix_interval_predicate (lt)")
+    _RESOLVED[spec] = model
+    return model
+
+
+register_model("wc", _no_param(WeightedCascade))
+register_model("ic", lambda spec, param: UniformIC(
+    spec, _float_param(param, 0.1, "ic probability")))
+register_model("lt", _no_param(LinearThreshold))
+register_model("dic", lambda spec, param: DecayingIC(
+    spec, _float_param(param, 1.0, "dic decay")))

@@ -11,6 +11,9 @@ import numpy as np
 
 from repro_torch.graphs.structs import Graph
 
+PAPER_SETTINGS = ("w005", "w01", "w1", "n005", "u01")
+
+
 def edge_weights(setting: str, m: int, seed: int = 0) -> np.ndarray:
     """The paper's five influence settings (§5)."""
     rng = np.random.default_rng(seed)

@@ -1,6 +1,8 @@
-"""SNAP edge-list loader (numpy), a copy of the reference ``graphs/io.py``
-loader."""
+"""Graph IO (numpy), a copy of the reference ``graphs/io.py``: the SNAP
+edge-list loader and the npz cache of a built graph."""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -37,3 +39,28 @@ def load_snap_edgelist(path: str, *, setting: str = "w1", directed: bool = True,
     else:
         w = edge_weights(setting, src.shape[0], seed=seed)
     return Graph.from_edges(n, src, dst, w, edge_block=edge_block)
+
+
+def save_npz(path: str, g: Graph) -> None:
+    """Write ``g`` (sizes and edge arrays) to a compressed npz, the
+    reference's layout."""
+    np.savez_compressed(path, n=g.n, n_pad=g.n_pad, m_real=g.m_real, src=g.src,
+                        dst=g.dst, weight=g.weight)
+
+
+def load_npz(path: str) -> Graph:
+    """The graph ``save_npz`` wrote (either package's)."""
+    z = np.load(path)
+    return Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], weight=z["weight"],
+                 n_pad=int(z["n_pad"]), m_real=int(z["m_real"]))
+
+
+def cached(path: str, builder) -> Graph:
+    """``load_npz(path)`` where the file exists, else ``builder()`` saved
+    there first."""
+    if os.path.exists(path):
+        return load_npz(path)
+    g = builder()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    save_npz(path, g)
+    return g

@@ -93,6 +93,12 @@ class Graph:
         return Graph(n=n, src=src, dst=dst, weight=weight, n_pad=n_pad,
                      m_real=m_real)
 
+    def with_weights(self, weight: np.ndarray) -> "Graph":
+        """Replace the real edges' weights (padding stays 0)."""
+        w = np.zeros_like(self.weight)
+        w[: self.m_real] = np.asarray(weight, dtype=np.float32)[: self.m_real]
+        return dataclasses.replace(self, weight=w)
+
     def sorted_by_dst(self) -> "Graph":
         """Real edges sorted by (dst, src), padding kept at the end."""
         r = self.m_real
@@ -101,6 +107,10 @@ class Graph:
         dst = np.concatenate([self.dst[:r][order], self.dst[r:]])
         w = np.concatenate([self.weight[:r][order], self.weight[r:]])
         return dataclasses.replace(self, src=src, dst=dst, weight=w)
+
+    def reverse(self) -> "Graph":
+        """The transposed graph: every edge's endpoints swapped."""
+        return dataclasses.replace(self, src=self.dst.copy(), dst=self.src.copy())
 
     def csr(self) -> "CSR":
         return CSR.from_graph(self)
@@ -202,3 +212,11 @@ class CSR:
         indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         return CSR(n=g.n, indptr=indptr, indices=dst_s.astype(INT), weight=w_s,
                    order=order)
+
+    def neighbors(self, u: int) -> np.ndarray:
+        """u's out-neighbours."""
+        return self.indices[self.indptr[u]: self.indptr[u + 1]]
+
+    def neighbor_weights(self, u: int) -> np.ndarray:
+        """The weights of u's out-edges, in ``neighbors(u)``'s order."""
+        return self.weight[self.indptr[u]: self.indptr[u + 1]]

@@ -51,7 +51,8 @@ _P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _ITEM_SWEEP = [_P] * 13 + [_I] * 4 + [_P, _P]
 #: kernel name -> (source ``csrc/<source>.cu``, C entry point, argument types)
 SIGNATURES = {
-    "sketch_fill": ("sketch_fill", "repro_sketch_fill", [_P, _P, _I, _I, _U, _U, _P]),
+    # m_in, out, ids (or null), id bytes, n_rows, num_regs, reg_offset, seed, stream
+    "sketch_fill": ("sketch_fill", "repro_sketch_fill", [_P, _P, _P, _I, _I, _I, _U, _U, _P]),
     "sketch_cardinality": ("sketch_cardinality", "repro_cardinality_stats",
                            [_P, _P, _I, _I, _P]),
     "sketch_propagate": ("sketch_propagate", "repro_propagate_sweep", _ITEM_SWEEP),

@@ -9,7 +9,7 @@ integer work per element:
 
 * the fill, per register: ``j * M2`` (one add from the word's base), xor,
   fmix32's 8, clz, byte pack (:data:`FILL_OPS`); the VISITED merge is per
-  4-register word and not counted;
+  4-register word and not counted; a row-id operand adds one id a row;
 * the cardinality, per register: compare, shift, 64-bit add, count
   (:data:`CARD_OPS`);
 * a propagate merge or a sample, per (edge or slot, register): the predicate
@@ -42,9 +42,11 @@ REGS_PER_WORD = 4
 Cost = Tuple[int, int]
 
 
-def sketch_fill(n: int, j: int) -> Cost:
+def sketch_fill(n: int, j: int, id_bytes: int = 0) -> Cost:
+    """``id_bytes``: the bytes of a row id where the fill takes a row-id
+    operand (4 or 8), else 0."""
     cells = n * j
-    return FILL_OPS * cells, 2 * cells
+    return FILL_OPS * cells, 2 * cells + id_bytes * n
 
 
 def sketch_cardinality(n: int, j: int) -> Cost:

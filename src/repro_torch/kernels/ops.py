@@ -31,7 +31,7 @@ from repro_torch.kernels.fused_sample import fused_sample_cuda, fused_sample_pla
 from repro_torch.kernels.fused_sweep import fused_sweep_cuda, fused_sweep_plain
 from repro_torch.kernels.sketch_cardinality import (cardinality_stats_cuda,
                                                     cardinality_stats_plain)
-from repro_torch.kernels.sketch_fill import sketch_fill_cuda, sketch_fill_plain
+from repro_torch.kernels.sketch_fill import check_ids, sketch_fill_cuda, sketch_fill_plain
 from repro_torch.kernels.sketch_propagate import (propagate_sweep_cuda,
                                                   propagate_sweep_plain)
 
@@ -58,9 +58,12 @@ def _flag(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(1, dtype=torch.int32, device=t.device)
 
 
-def _fill_meta(m, *, reg_offset=0, seed=0):
+def _fill_meta(m, *, ids=None, reg_offset=0, seed=0):
     check_matrix(m)
-    return _dry("sketch_fill", cost.sketch_fill(*m.shape), torch.empty_like(m))
+    check_ids(ids, m)
+    id_bytes = 0 if ids is None else ids.element_size()
+    return _dry("sketch_fill", cost.sketch_fill(*m.shape, id_bytes=id_bytes),
+                torch.empty_like(m))
 
 
 def _cardinality_meta(m):
@@ -109,9 +112,12 @@ _bucket_cascade_meta = _merge_meta("bucket_cascade", cost.bucket_cascade)
 
 # -- the dispatch ---------------------------------------------------------------------
 
-def sketch_fill(m: torch.Tensor, *, reg_offset: int = 0, seed: int = 0) -> torch.Tensor:
+def sketch_fill(m: torch.Tensor, *, ids: Optional[torch.Tensor] = None,
+                reg_offset: int = 0, seed: int = 0) -> torch.Tensor:
+    """The fill of ``m``'s rows; row r is vertex ``ids[r]`` where ``ids`` is
+    given, else vertex r."""
     fn = _pick(m, sketch_fill_cuda, sketch_fill_plain, _fill_meta)
-    return fn(m, reg_offset=reg_offset, seed=seed)
+    return fn(m, ids=ids, reg_offset=reg_offset, seed=seed)
 
 
 def cardinality_stats(m: torch.Tensor) -> torch.Tensor:

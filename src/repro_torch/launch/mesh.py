@@ -176,8 +176,9 @@ class Exchange:
     adds its calls, the bytes this rank sent and its host seconds (device
     copies included where staged; an NCCL call returns once queued) to
     ``stats``, and runs in a span (``mesh.ring_shift``, ``mesh.all_gather``,
-    ``mesh.all_reduce``, ``mesh.all_reduce_max``, ``mesh.scatter``,
-    ``mesh.gather``; recorded where the trace recorder is on). The serving
+    ``mesh.ordered_sum``, ``mesh.all_reduce``, ``mesh.all_reduce_max``,
+    ``mesh.scatter``, ``mesh.gather``; recorded where the trace recorder is
+    on). The serving
     kinds (the tensor MAX, the scatter and the gather of row blocks) stage
     one-off shapes through unpinned host copies."""
 
@@ -239,6 +240,40 @@ class Exchange:
                 out = torch.empty((size, *t.shape), dtype=t.dtype, device=t.device)
                 dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
         self._count("all_gather", nbytes if size > 1 else 0, time.perf_counter() - t0)
+        return out
+
+    def ordered_sum(self, t: torch.Tensor, group, size: int) -> torch.Tensor:
+        """The elementwise sum of every rank's ``t`` over ``group``, added in
+        group rank order (``((t_0 + t_1) + t_2) + ...``), as a new tensor on
+        this rank's device, the same on every rank of the group.
+
+        Float addition is not associative, so the order is part of the
+        result; the serial ring adds its sim shards in this order. A
+        reduce-scatter and an all-gather, as a ring all-reduce moves: ``t``
+        is cut into ``size`` chunks (zero padded); an ``all_to_all`` hands
+        rank i every rank's chunk i, which it adds in rank order; an
+        ``all_gather`` returns the summed chunks. Each rank sends ``(size -
+        1) / size`` of the padded ``t`` twice, whatever ``size``."""
+        t0 = time.perf_counter()
+        chunk = -(-t.numel() // size)
+        nbytes = size * chunk * t.element_size()
+        with trace.span("mesh.ordered_sum", phase="ring", bytes=nbytes, ranks=size):
+            if size == 1:
+                out = t.clone()
+            else:
+                dev = torch.device("cpu") if self.staged else t.device
+                flat = torch.zeros(size * chunk, dtype=t.dtype, device=dev)
+                flat[:t.numel()] = t.reshape(-1)
+                parts = torch.empty_like(flat)
+                dist.all_to_all_single(parts, flat, group=group)
+                parts = parts.view(size, chunk)
+                acc = parts[0].clone()
+                for i in range(1, size):     # in group rank order
+                    acc += parts[i]
+                sums = torch.empty((size, chunk), dtype=t.dtype, device=dev)
+                dist.all_gather(list(sums.unbind(0)), acc, group=group)
+                out = sums.reshape(-1)[:t.numel()].reshape(t.shape).to(self.device)
+        self._count("ordered_sum", nbytes if size > 1 else 0, time.perf_counter() - t0)
         return out
 
     def all_reduce(self, value: int, op, group=None) -> int:
@@ -335,11 +370,12 @@ class DryExchange(Exchange):
     ``CollectiveRecord`` (kind, payload bytes, group size, the shape sent)
     to ``records``, for the ring formulas of ``utils.collectives``; the
     payload is the result's bytes, as the reference's HLO counts it: the
-    ring block, the gathered tensor, the reduced value, every chunk of a
-    scatter or a gather. Results are ``meta`` tensors of the real shapes;
-    ``all_reduce`` returns 0. ``rank`` is this rank's global rank (a
-    scatter's source and a gather's destination send nothing to
-    themselves); ``world_size`` the size of the ``None`` group."""
+    ring block, the gathered tensor, the reduced value (the padded sum of
+    an ordered sum), every chunk of a scatter or a gather. Results are
+    ``meta`` tensors of the real shapes; ``all_reduce`` returns 0. ``rank``
+    is this rank's global rank (a scatter's source and a gather's
+    destination send nothing to themselves); ``world_size`` the size of the
+    ``None`` group."""
 
     def __init__(self, world_size: int, rank: int = 0):
         super().__init__("dry", torch.device("meta"))
@@ -363,6 +399,11 @@ class DryExchange(Exchange):
         nbytes = t.nbytes
         self._record("all_gather", size * nbytes, size, t.shape, nbytes if size > 1 else 0)
         return torch.empty((size, *t.shape), dtype=t.dtype, device="meta")
+
+    def ordered_sum(self, t: torch.Tensor, group, size: int) -> torch.Tensor:
+        nbytes = size * -(-t.numel() // size) * t.element_size()
+        self._record("ordered_sum", nbytes, size, t.shape, nbytes if size > 1 else 0)
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
     def all_reduce(self, value: int, op, group=None) -> int:
         self._record("all_reduce", 8, self._size(group), (1,), 8)

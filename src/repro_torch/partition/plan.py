@@ -25,7 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.fasst import partition_samples, sampled_by_any
+from repro_torch.core.fasst import _bits, partition_samples, sampled_by_any
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.graphs.structs import Graph
@@ -55,6 +55,10 @@ class PartitionPlan:
     def owner_of(self, ids: np.ndarray) -> np.ndarray:
         """Owning vertex shard of each original vertex id."""
         return (self.perm[np.asarray(ids, dtype=np.int64)] // self.n_loc).astype(np.int32)
+
+    def local_row_of(self, ids: np.ndarray) -> np.ndarray:
+        """Row of each original vertex id within its owning shard's block."""
+        return (self.perm[np.asarray(ids, dtype=np.int64)] % self.n_loc).astype(np.int32)
 
     def owned_ids(self) -> np.ndarray:
         """int32[mu_v, n_loc] original vertex id per (shard, local row)."""
@@ -95,11 +99,6 @@ class SampledEdges:
     @property
     def device(self) -> torch.device:
         return self.h.device
-
-
-def _bits(a: np.ndarray, device) -> torch.Tensor:
-    """uint32 numpy -> int32 tensor of the same bits on ``device``."""
-    return torch.from_numpy(np.require(a, np.uint32, ["C", "W"]).view(np.int32)).to(device)
 
 
 @trace.traced("partition.sample_edge_sets", phase="plan", sync=True)

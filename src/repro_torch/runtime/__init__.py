@@ -24,8 +24,8 @@ from repro_torch.runtime import mesh as _mesh  # noqa: F401  (registers)
 from repro_torch.runtime import serial as _serial  # noqa: F401  (registers)
 from repro_torch.runtime import single as _single  # noqa: F401  (registers)
 from repro_torch.runtime.base import (Backend, BackendCapabilities, BackendUnavailable,
-                                      RunReport, get_backend, register_backend,
-                                      resolve_backend, resolve_residency)
+                                      RunReport, available_backends, get_backend,
+                                      register_backend, resolve_backend, resolve_residency)
 from repro_torch.runtime.session import InfluenceSession
 from repro_torch.runtime.spec import RunSpec
 
@@ -43,5 +43,5 @@ def run(g, k: int, spec: Optional[RunSpec] = None, *, x=None, plan=None,
 
 
 __all__ = ["Backend", "BackendCapabilities", "BackendUnavailable", "InfluenceSession",
-           "RunReport", "RunSpec", "get_backend", "register_backend", "resolve_backend",
-           "resolve_residency", "run"]
+           "RunReport", "RunSpec", "available_backends", "get_backend", "register_backend",
+           "resolve_backend", "resolve_residency", "run"]

@@ -92,9 +92,14 @@ class Backend(abc.ABC):
     def capabilities(self) -> BackendCapabilities:
         ...
 
+    def available(self) -> Tuple[bool, str]:
+        """An environment check only (the torch build, the process group's
+        module): can this backend run at all, and if not, why not."""
+        return True, ""
+
     def supports(self, g: Optional[Graph], spec: RunSpec) -> Tuple[bool, str]:
         """Can this backend run ``spec``, and if not, why not."""
-        return True, ""
+        return self.available()
 
     @abc.abstractmethod
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
@@ -150,6 +155,12 @@ def get_backend(name: str) -> Backend:
         raise KeyError(f"unknown backend {name!r}; registered: {sorted(_BACKENDS)} "
                        f"(plus 'auto')")
     return b
+
+
+def available_backends() -> Dict[str, Tuple[bool, str]]:
+    """name -> (available, the reason where not) for every registered
+    backend."""
+    return {name: b.available() for name, b in sorted(_BACKENDS.items())}
 
 
 def resolve_backend(spec: RunSpec, g: Optional[Graph] = None, *, mesh=None) -> Backend:

@@ -15,7 +15,11 @@ B is the result's bytes (the gathered tensor for an all-gather, every chunk
 for a scatter or a gather) and N the group's size. The exchange's kinds take
 the reference's names: ``ring_shift`` is ``collective-permute``,
 ``all_gather`` ``all-gather``, ``all_reduce`` and ``all_reduce_max``
-``all-reduce``.
+``all-reduce``. ``ordered_sum`` (the selection statistics' sum over the sim
+shards, added in shard order) is the reference's ``psum``, an
+``all-reduce``: an ``all_to_all`` and an ``all_gather`` of ``1/N`` chunks
+each, which move the ring all-reduce's ``2 * B * (N-1)/N``, B its padded
+sum.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ class CollectiveRecord(NamedTuple):
 #: the exchange's kinds under the reference's names
 KINDS = {"ring_shift": "collective-permute", "all_gather": "all-gather",
          "all_reduce": "all-reduce", "all_reduce_max": "all-reduce",
+         "ordered_sum": "all-reduce",
          "scatter": "scatter", "gather": "gather"}
 
 

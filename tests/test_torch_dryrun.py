@@ -100,6 +100,9 @@ FORMULA_CASES = {
                        "replica_groups=[1,4]<=[4], to_apply=%max"),
     "all_gather": ("%all-gather = f32[4,2,128]{2,1,0} all-gather(f32[1,2,128]{2,1,0} %p), "
                    "replica_groups=[1,4]<=[4], dimensions={0}"),
+    # the selection's psum of the (2, n_loc) float32 sums over the sim shards
+    "ordered_sum": ("%all-reduce.3 = f32[2,128]{1,0} all-reduce(f32[2,128]{1,0} %s), "
+                    "replica_groups=[1,4]<=[4], to_apply=%add"),
     "ring_shift": ("%collective-permute = s8[64,32]{1,0} collective-permute(s8[64,32]{1,0} "
                    "%q), source_target_pairs={{0,1},{1,0}}"),
     "scatter": None,
@@ -119,6 +122,8 @@ def test_ring_formula_of_each_kind(kind):
         "all_reduce_max": lambda: ex.all_reduce_max(
             torch.empty((64, 32), dtype=torch.int8, device="meta"), grid4),
         "all_gather": lambda: ex.all_gather(
+            torch.empty((2, 128), dtype=torch.float32, device="meta"), grid4, 4),
+        "ordered_sum": lambda: ex.ordered_sum(
             torch.empty((2, 128), dtype=torch.float32, device="meta"), grid4, 4),
         "ring_shift": lambda: ex.ring_shift(
             torch.empty((64, 32), dtype=torch.int8, device="meta"),
@@ -141,7 +146,8 @@ def test_ring_formula_of_each_kind(kind):
     (calls_, sent, secs), = ex.stats.values()
     assert calls_ == 1 and secs == 0.0
     assert sent == {"all_reduce": 8, "all_reduce_max": 2048, "all_gather": 1024,
-                    "ring_shift": 2048, "scatter": 768, "gather": 256}[kind]
+                    "ordered_sum": 1024, "ring_shift": 2048, "scatter": 768,
+                    "gather": 256}[kind]
 
 
 def test_production_mesh_and_the_dry_rank_view():
@@ -324,16 +330,18 @@ def mini_cell(monkeypatch):
 
 def _port_schedule(grid: MeshShape, cell: str, schedule: str) -> dict:
     """The port's wire bytes by kind, from its schedule: three ring-sweep
-    bodies (build, cascade, rebuild), one round's select (the sim shards'
-    ``(2, n_loc)`` float32 sums, then the vertex shards' float64 argmax
-    pairs) and four int64 all-reduces (three changed flags, the visited
-    count) over the grid."""
+    bodies (build, cascade, rebuild), one round's select (the ordered sum of
+    the sim shards' ``(2, n_loc)`` float32 sums, an all-reduce's bytes of
+    the sums padded to ``mu_s`` equal chunks, then the vertex shards'
+    float64 argmax pairs) and four int64 all-reduces (three changed flags,
+    the visited count) over the grid."""
     n, _, j, _ = dryrun.IM_CELLS[cell]
     mu_v, mu_s, size = grid.mu_v, grid.mu_s, grid.size
     n_loc = -(-n // mu_v)
     block = n_loc * (j // mu_s)
-    out = {"all-reduce": 4 * 2.0 * 8 * (size - 1) / size,
-           "all-gather": 2 * n_loc * 4 * (mu_s - 1) + 16 * (mu_v - 1)}
+    sums = mu_s * -(-2 * n_loc // mu_s) * 4
+    out = {"all-reduce": 4 * 2.0 * 8 * (size - 1) / size + 2.0 * sums * (mu_s - 1) / mu_s,
+           "all-gather": 16 * (mu_v - 1)}
     if schedule == "ring":
         out["collective-permute"] = 3.0 * (mu_v - 1) * block
     else:
@@ -364,18 +372,40 @@ def test_port_against_the_reference_dry_run(tag, reference_records, mini_cell):
         assert len(block) == 3 and blocks == want["all-gather"] - 8
     assert got == pytest.approx(_port_schedule(grid, cell, schedule), rel=1e-12), (
         f"port {got}, the reference's {want}")
+    # the selection's sum moves the reference's psum bytes, within 10 %
+    assert abs(got["all-reduce"] - want["all-reduce"]) <= 0.1 * want["all-reduce"]
     assert rec["wire_bytes"] == rec["collectives"]["wire_bytes"]
     assert rec["wire_bytes"] == pytest.approx(sum(got.values()), rel=1e-12)
 
 
+#: each production record's dry temp bytes before the owned-rows fill, when a
+#: rank filled the whole ``n_pad x j_loc`` matrix and its fill and then
+#: selected its rows (the port's dry run at commit 79c500f)
+WHOLE_FILL_TEMP_GB = {("difuser-livejournal", False): 2.148, ("difuser-twitter", False): 8.594,
+                      ("difuser-friendster", False): 17.184,
+                      ("difuser-livejournal", True): 1.074, ("difuser-twitter", True): 4.299,
+                      ("difuser-friendster", True): 8.594}
+
+
 def test_fill_transient_shows_in_temp_bytes():
-    """The rank fills the whole ``n_pad x j_loc`` matrix, then selects its
-    rows: at twitter on the 16 x 16 mesh its temp holds that matrix and its
-    fill (2 x 4.29 GB), against a 268 MB block."""
+    """A rank fills only the ``n_loc`` rows it owns, keyed on their original
+    ids (``sketch_fill``'s row-id operand): no ``n_pad``-row matrix lives on
+    it. At twitter on the 16 x 16 mesh its temp is a few 268 MB blocks
+    (the fill, the block, the ring's two buffers, a sweep's copy), not the
+    2 x 4.29 GB of the whole matrix and its fill; every production record's
+    temp is at most a quarter of the whole fill's."""
     prog, part = dryrun.lower_im_cell("difuser-twitter", make_production_mesh())
     assert part.n_pad * part.j_loc == 1 << 32
-    assert prog.temp_bytes >= 2 * part.n_pad * part.j_loc
+    block = part.n_loc * part.j_loc
+    assert block == 1 << 28
+    assert 4 * block <= prog.temp_bytes <= 8 * block < part.n_pad * part.j_loc
+    assert prog.temp_bytes <= 2.15e9
     assert prog.bodies["fill"].launches == {"sketch_fill": 1}
+    # the fill's bytes: the owned block read and written, one int64 id a row
+    assert prog.bodies["fill"].kernel_bytes == 2 * block + 8 * part.n_loc
+    for (cell, multi), whole_gb in WHOLE_FILL_TEMP_GB.items():
+        prog, _ = dryrun.lower_im_cell(cell, make_production_mesh(multi_pod=multi))
+        assert prog.temp_bytes <= whole_gb * 1e9 / 4, (cell, multi, prog.temp_bytes)
     launched = prog.total().launches
     assert launched == {"sketch_fill": 1, "bucket_propagate": 32, "sketch_cardinality": 1,
                         "bucket_cascade": 16}

@@ -550,6 +550,25 @@ HUB_CASES = [(520, 256, None), (520, 1024, None)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_sketch_fill_ids_match_plain_on_cuda(cuda_device, id_dtype):
+    """The row-id operand: row r hashes vertex ids[r] (a mesh rank's owned
+    rows), VISITED kept, on the card as in the plain version."""
+    from repro_torch.core.sketch import fill_registers
+
+    m = torch.from_numpy(np.random.default_rng(8).integers(-1, 33, (300, 128),
+                                                           dtype=np.int8))
+    ids = torch.from_numpy(np.random.default_rng(9).permutation(1 << 20)[:300]).to(id_dtype)
+    want = sketch_fill.sketch_fill_plain(m, ids=ids, reg_offset=256, seed=3)
+    got = sketch_fill.sketch_fill_cuda(m.to(cuda_device), ids=ids.to(cuda_device),
+                                       reg_offset=256, seed=3)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(fill_registers(300, 128, reg_offset=256, seed=3, ids=ids).cpu(),
+                       sketch_fill.sketch_fill_plain(torch.zeros_like(m), ids=ids,
+                                                     reg_offset=256, seed=3))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_pad,num_regs,num_edges", CASES + HUB_CASES)
 def test_kernels_match_plain_on_cuda(cuda_device, n_pad, num_regs, num_edges):
     if num_edges is None:

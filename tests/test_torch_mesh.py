@@ -115,6 +115,7 @@ def _port_world(rank, cases, builds, graph, k):
             x=r.x, iters=r.propagate_iters, describe=rep.partition.stats().describe(),
             launches=dict(counters.LAUNCHES), plain=dict(counters.PLAIN_CALLS),
             exchange=r.stats["exchange"], backend=rep.backend, device=rep.device,
+            sweeps=r.propagate_iters + r.stats["cascade_sweeps"] + r.stats["rebuild_sweeps"],
             profile=(prof.backend, prof.per_step_timed, int(prof.step_bytes.sum())))
     # the deprecated shim runs the backend on the given mesh
     with warnings.catch_warnings(record=True) as caught:
@@ -222,6 +223,18 @@ def test_mesh_runs_only_the_paths_plain_kernels(name, port):
         ring = CASES[name].get("schedule", "ring") == "ring" and CASES[name]["mu_v"] > 1
         assert (shifted > 0) == ring
         assert got["profile"][:2] == ("mesh", False) and got["profile"][2] > 0
+        # the selection sums over the sim shards by one ordered sum a round
+        # (all_to_all and all_gather of 1/mu_s chunks); the all_gathers carry
+        # only the argmax's (best, seed) pairs, and the allgather schedule's
+        # blocks, one a sweep: no rank gathers every shard's (2, n_loc) sums
+        ex, mu_v = got["exchange"], CASES[name]["mu_v"]
+        assert ex["ordered_sum"]["calls"] == K, ex
+        assert (ex["ordered_sum"]["bytes_sent"] > 0) == (CASES[name]["mu_s"] > 1), ex
+        if ring:
+            assert ex["all_gather"]["calls"] == K, ex
+            assert ex["all_gather"]["bytes_sent"] == (16 * K if mu_v > 1 else 0), ex
+        elif CASES[name].get("schedule") == "allgather":
+            assert ex["all_gather"]["calls"] == K + got["sweeps"], ex
 
 
 @pytest.mark.parametrize("name", sorted(n for n, kw in CASES.items()

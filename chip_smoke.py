@@ -124,12 +124,17 @@ Phases (each raises on failure; none is caught):
    0's exchange spans; (b) the allgather schedule at K = 8, equal to the
    first 8 rounds of (a); (c) ``MeshBackend.build_matrix`` at J = 512,
    byte-equal to the single path's matrix; (d) a world of 1 on NCCL at
-   rmat:14, J = 256, K = 8, seeds equal to the single path's; in (a) each
+   rmat:14, J = 256, K = 8, seeds equal to the single path's; in (a)-(c)
+   each rank prepares only its own shard (``partition.shard.build_shard_2d``
+   once a run; no call of the whole partition's build or of its graph-wide
+   sample sets, counted through every name that reaches them); in (a) each
    rank's state construction fills only its ``n_loc`` owned rows, by row
-   ids, and its peak (split into the partition's build, the state's
-   construction and the rest) stays within 1 % of
-   ``MESH_WHOLE_FILL_PEAK_GIB``, the peak when a rank filled the whole
-   ``n_pad x j_loc`` matrix; (e) ``python
+   ids, and its peak is split into the partition's prep, the state's
+   construction and the rest: the prep at most 1.0 GiB, the whole peak at
+   most 2.0 GiB (and within 1 % of ``MESH_WHOLE_FILL_PEAK_GIB``, the peak
+   when a rank filled the whole ``n_pad x j_loc`` matrix), printed beside
+   ``MESH_WHOLE_PARTITION_PEAK_GIB``, the peak when every rank built the
+   whole partition; (e) ``python
    -m torch.distributed.run --nproc-per-node 4 -m repro_torch im --devices 4
    --backend mesh`` at rmat:16, seeds equal to the serial backend's. The
    shared-card world time-slices one card and exchanges through host
@@ -147,11 +152,13 @@ Phases (each raises on failure; none is caught):
    matrix byte-equal to phase 6's repaired matrix and to the ``serial``
    shard repair at the same plan, sweeps and shards swept equal to it; the
    delta's host seconds, rank 0's merges on the device (CUDA events) and
-   the exchanges; each rank's peak memory, and its launches from placement
-   to (c)'s mesh repair, reset and read by operations of the world on every
-   rank (the store builds, the plan and the serial twin's repair run before
-   that window; every rank launched the path's five kernels, no other
-   kernel, no plain call; ``launches_mesh_serve``, summed);
+   the exchanges; each rank's peak memory (the followers' beside their
+   prediction and ``MESH_SERVE_WHOLE_PARTITION_GIB``), and its launches
+   from placement to (c)'s mesh repair, reset and read by operations of the
+   world on every rank (the store builds, the plan and the serial twin's
+   repair run before that window; every rank launched the path's five
+   kernels, no other kernel, no plain call; ``launches_mesh_serve``,
+   summed);
    (e) ``python -m torch.distributed.run --nproc-per-node 4 -m repro_torch
    serve --residency device --plan-shards 4`` at rmat:16, its answers equal
    to a host-resident run's. As in phase 10 the ranks time-slice one card
@@ -167,8 +174,9 @@ Phases (each raises on failure; none is caught):
    dry program of each phase 10 (a) rank's partition (its real bucket
    widths), times that run's build, cascade and rebuild sweeps and K, equals
    the rank's exchanges (calls and bytes sent per kind) and kernel launches
-   (the partition's ``fused_sample`` aside); rank 0's predicted peak
-   (arguments and temp) beside its ``max_memory_allocated``, not a gate;
+   (the partition's ``fused_sample`` aside); each rank's predicted peak
+   (arguments and temp) beside its ``max_memory_allocated`` and their
+   ratio, not a gate;
    (c) phase 4's launcher once under ``torch.profiler`` with CUDA activity:
    the top 12 kernels by device time (``utils.opprof``), the port's
    kernels' share of it, and device-busy time over wall time. Gates: every
@@ -2301,6 +2309,49 @@ MESH_TIMEOUT_S = 600.0
 # 79c500f, on this card; the partition's build sets it): no rank may go
 # more than 1 % above it
 MESH_WHOLE_FILL_PEAK_GIB = 3.112
+# (a)'s rank peak when every rank built the whole partition and kept its own
+# buckets (the port at commit 9d529ac, on this card); each rank now prepares
+# only its own shard, and (a) gates its prep and its whole peak
+MESH_WHOLE_PARTITION_PEAK_GIB = 3.112
+MESH_PREP_PEAK_LIMIT_GIB = 1.0
+MESH_RANK_PEAK_LIMIT_GIB = 2.0
+# the names through which a rank could reach the whole partition's build or
+# its graph-wide sample sets: (a)-(c) count each rank's calls through them
+# (none allowed) and through the own-shard prep (one a run)
+WHOLE_BUILD_NAMES = (("repro_torch.partition.builder", "build_partition_2d"),
+                     ("repro_torch.partition.serial", "build_partition_2d"),
+                     ("repro_torch.partition.serial", "_prepare"),
+                     ("repro_torch.partition.plan", "sample_edge_sets"),
+                     ("repro_torch.partition.builder", "sample_edge_sets"),
+                     ("repro_torch.partition.serial", "sample_edge_sets"))
+
+
+@contextlib.contextmanager
+def _prep_calls(calls: dict):
+    """Count a rank's calls through ``WHOLE_BUILD_NAMES`` (``calls["whole"]``)
+    and of the own-shard prep as the mesh reaches it (``calls["own"]``)."""
+    import importlib
+
+    from repro_torch.core import distributed
+
+    calls.update(whole=0, own=0)
+    targets = [(importlib.import_module(m), n, "whole") for m, n in WHOLE_BUILD_NAMES]
+    targets.append((distributed, "build_shard_2d", "own"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def counted(fn, kind):
+        def call(*a, **k):
+            calls[kind] += 1
+            return fn(*a, **k)
+        return call
+
+    for (mod, name, kind), (_, _, fn) in zip(targets, saved):
+        setattr(mod, name, counted(fn, kind))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -2373,7 +2424,9 @@ def _mesh_rank(rank: int, g, k: int) -> dict:
             rec.start()
         t0 = time.perf_counter()
         marks: dict = {}
-        with _state_peaks(marks) if tag == "a" else contextlib.nullcontext():
+        calls: dict = {}
+        with _prep_calls(calls), (_state_peaks(marks) if tag == "a"
+                                  else contextlib.nullcontext()):
             rep = run(g, kk, sp, device="cuda")
         wall = time.perf_counter() - t0
         spans = {}
@@ -2388,6 +2441,7 @@ def _mesh_rank(rank: int, g, k: int) -> dict:
                         peak_bytes=max(torch.cuda.max_memory_allocated(),
                                        marks.get("prep", 0)),
                         rest_peak=torch.cuda.max_memory_allocated(), marks=marks,
+                        prep_calls=calls,
                         n_loc=rep.partition.n_loc, n_pad=rep.partition.n_pad,
                         j_loc=rep.partition.j_loc, device=rep.device,
                         describe=rep.partition.stats().describe())
@@ -2397,10 +2451,12 @@ def _mesh_rank(rank: int, g, k: int) -> dict:
     bspec = spec.with_(num_registers=MESH_BUILD_REGS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    m, iters = get_backend("mesh").build_matrix(g, bspec, None, device="cuda")
+    calls = {}
+    with _prep_calls(calls):
+        m, iters = get_backend("mesh").build_matrix(g, bspec, None, device="cuda")
     torch.cuda.synchronize()
     out["c"] = dict(iters=iters, wall_s=time.perf_counter() - t0, shape=tuple(m.shape),
-                    peak_bytes=torch.cuda.max_memory_allocated())
+                    peak_bytes=torch.cuda.max_memory_allocated(), prep_calls=calls)
     if rank == 0:
         want, want_iters = get_backend("single").build_matrix(
             g, RunSpec(num_registers=MESH_BUILD_REGS, model=FULL["model"]), None,
@@ -2492,11 +2548,12 @@ def phase_mesh(full: dict, serial: dict, k: int) -> dict:
         ra, gib = rk["a"], 2**30
         mk, block = ra["marks"], ra["n_loc"] * ra["j_loc"]
         whole = 2 * ra["n_pad"] * ra["j_loc"]
-        peak = ra["peak_bytes"] / gib
-        log(f"[10a] rank {r} peak {peak:.4f} GiB (whole-matrix fill: "
-            f"{MESH_WHOLE_FILL_PEAK_GIB} GiB): the partition's build {mk['prep'] / gib:.4f} "
-            f"GiB; the rank state's construction (the fill, the block, the ring buffers) "
-            f"{mk['state'] / gib:.4f} GiB above the {mk['base'] / gib:.4f} GiB it began "
+        peak, prep = ra["peak_bytes"] / gib, mk["prep"] / gib
+        log(f"[10a] rank {r} peak {peak:.4f} GiB, {peak / MESH_WHOLE_PARTITION_PEAK_GIB:.4f} "
+            f"of the whole partition's build ({MESH_WHOLE_PARTITION_PEAK_GIB} GiB; "
+            f"whole-matrix fill: {MESH_WHOLE_FILL_PEAK_GIB} GiB): its own shard's prep "
+            f"{prep:.4f} GiB; the rank state's construction (the fill, the block, the ring "
+            f"buffers) {mk['state'] / gib:.4f} GiB above the {mk['base'] / gib:.4f} GiB it began "
             f"with, {mk['state'] / block:.2f} n_loc x j_loc blocks (the whole matrix and its "
             f"fill alone: {whole / gib:.4f} GiB); from the state on (build, rounds) "
             f"{ra['rest_peak'] / gib:.4f} GiB")
@@ -2507,6 +2564,18 @@ def phase_mesh(full: dict, serial: dict, k: int) -> dict:
               f"its owned rows {want_fill}")
         check(peak <= 1.01 * MESH_WHOLE_FILL_PEAK_GIB,
               f"10a: rank {r}'s peak {peak:.4f} GiB is above the whole-matrix fill's")
+        check(prep <= MESH_PREP_PEAK_LIMIT_GIB,
+              f"10a: rank {r}'s partition prep peaks at {prep:.4f} GiB, above "
+              f"{MESH_PREP_PEAK_LIMIT_GIB} GiB")
+        check(peak <= MESH_RANK_PEAK_LIMIT_GIB,
+              f"10a: rank {r}'s peak {peak:.4f} GiB is above {MESH_RANK_PEAK_LIMIT_GIB} GiB")
+        for tag in ("a", "b", "c"):
+            calls = rk[tag]["prep_calls"]
+            check(calls == {"whole": 0, "own": 1},
+                  f"10{tag}: rank {r}'s work lists did not come from one own-shard prep "
+                  f"alone: {calls}")
+    log("[10a-c] every rank prepared its own shard once a run and never reached the whole "
+        "partition's build or its graph-wide sample sets")
     spans = ranks[0]["a"]["spans"]
     log("[10a] rank 0 spans: " + ", ".join(
         f"{n} {t:.3f}s x{c}" for n, (c, t) in sorted(spans.items(), key=lambda i: -i[1][1])))
@@ -2602,6 +2671,11 @@ def phase_mesh(full: dict, serial: dict, k: int) -> dict:
 # serial ring); (e) the launcher's --residency device at rmat:16
 SERVING = dict(ranks=4, strategy="block")
 SERVING_LAUNCHER_GRAPH = "rmat:16"
+# a follower's peak (GiB) when every rank built the whole partition (the port
+# at commit 9d529ac, on this card), and the most predicted now that each
+# rank prepares only its own shard (printed, not a gate)
+MESH_SERVE_WHOLE_PARTITION_GIB = 3.19
+MESH_SERVE_FOLLOWER_PREDICTED_GIB = 1.6
 # the device-resident path: the partition's sample sets, the warm rounds'
 # fill, selection, cascades and rebuild sweeps, the repair's merges, the
 # queries' estimator
@@ -2838,6 +2912,10 @@ def phase_mesh_serving() -> dict:
         + "; ".join(str(rl) for rl, _ in r0["window"]) + f"; plain calls {plain}; "
         "max_memory_allocated "
         + ", ".join(f"{rk['peak_bytes'] / 2**30:.2f}" for rk in ranks) + " GiB")
+    log("[11] follower peaks " + ", ".join(
+        f"rank {r} {rk['peak_bytes'] / 2**30:.4f}" for r, rk in enumerate(ranks) if r)
+        + f" GiB (predicted at most {MESH_SERVE_FOLLOWER_PREDICTED_GIB} GiB; "
+        f"{MESH_SERVE_WHOLE_PARTITION_GIB} GiB when every rank built the whole partition)")
     check(not plain, f"plain versions ran on the device-resident path: {plain}")
     for r, (rank_launches, _) in enumerate(r0["window"]):
         missing = [n for n in MESH_SERVE_KERNELS if rank_launches.get(n, 0) <= 0]
@@ -2987,8 +3065,13 @@ def phase_dryrun(mesh: dict, full) -> dict:
         + f"; launches {dry['launches']}; dry program {dry['host_s']:.3f}s")
     log(f"[12b] rank 0 peak: predicted {predicted / 2**30:.3f} GiB (arguments "
         f"{dry['argument_bytes'] / 2**30:.3f}, temp {dry['temp_bytes'] / 2**30:.3f}), "
-        f"measured max_memory_allocated {a['peak_bytes'] / 2**30:.3f} GiB (partition build "
+        f"measured max_memory_allocated {a['peak_bytes'] / 2**30:.3f} GiB (partition prep "
         f"included), ratio {a['peak_bytes'] / predicted:.3f}")
+    ratios = []
+    for rk in mesh["ranks"]:
+        ra = rk["a"]
+        ratios.append(ra["peak_bytes"] / (ra["dry"]["argument_bytes"] + ra["dry"]["temp_bytes"]))
+    log("[12b] measured / predicted peak by rank: " + ", ".join(f"{q:.4f}" for q in ratios))
 
     # (c) phase 4's single path once under the profiler
     argv = ["--graph", FULL["graph"], "--setting", FULL["setting"], "--model",

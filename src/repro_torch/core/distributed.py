@@ -38,10 +38,12 @@ method of the mesh's ``Exchange``, timed and spanned there):
 The merges are the serial ring's (``partition/serial.py``): ``bucket_propagate``
 and ``bucket_cascade`` on work lists cut by ``_shard_rows``, ``fused_sweep``
 for the fused prologue, ``sketch_fill`` and ``cardinality_stats``. Each rank
-builds the whole partition as the serial ring's ``_prepare`` does (the same
-deterministic sample sets, plan and buckets on every rank) and keeps the
-buckets of its own ``(v, s)``; the others shrink to shape-only ``meta``
-tensors, so the partition's stats stay whole.
+prepares only its own ``(v, s)`` shard (``partition.shard.build_shard_2d``):
+the sample sets a chunk of edges at a time through ``fused_sample``, the
+same deterministic counts and plan on every rank with no exchange, and the
+work lists of its own buckets; the partition it returns keeps every
+shard's counts and shape-only (``meta``) bucket tensors, so its stats stay
+whole.
 
 Device-resident serving runs two more mesh programs on a ``(mu_v, 1)``
 serving mesh whose ranks hold their plan-order row block of a placed store
@@ -58,12 +60,11 @@ entry (``service.store.StoreEntry.place_on_mesh``):
   into the next sweep's dirty vector; it stops when nothing is dirty or at
   ``max_propagate_iters``. The new block stays on its rank.
 
-Both take their rank's buckets of ``_partition_for_plan`` (the whole
-partition built on each rank, the costly host step); the serving world's
-operations (the ``_op_*`` bodies at the end of this module) cache it on
-each rank against the content of the entry's version (its graph's
-fingerprint, the plan, x and the setting), as the reference caches it
-against the version.
+Both take their rank's ``_rank_partition`` of the plan (the costly host
+step); the serving world's operations (the ``_op_*`` bodies at the end of
+this module) cache it on each rank against the content of the entry's
+version (its graph's fingerprint, the plan, x and the setting), as the
+reference caches it against the version.
 
 Two behaviours follow the reference's mesh and not its serial ring:
 
@@ -93,11 +94,9 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.obs import shardprof, trace
 from repro_torch.partition.builder import Partition2D
-from repro_torch.partition.serial import (_partial_scratch, _prepare, _RingState,
-                                          _shard_rows, _visited_per_row)
+from repro_torch.partition.serial import _partial_scratch, _RingState, _visited_per_row
+from repro_torch.partition.shard import build_shard_2d
 from repro_torch.utils import roofline
-
-_BUCKET_FIELDS = ("p_h", "p_w", "p_r", "p_t", "p_l", "c_h", "c_w", "c_r", "c_t", "c_l")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,15 +127,6 @@ def _publish_mesh_profile(part: Partition2D, *, phase: str, sweeps: int, wall_s:
     roofline.annotate_bandwidth(span, int(mp.step_bytes.sum()), wall_s)
 
 
-def _keep_own_buckets(part: Partition2D) -> Partition2D:
-    """``part`` with every bucket tensor replaced by a ``meta`` tensor of its
-    shape: the rank's own work lists are cut already, and the stats read
-    only shapes and counts."""
-    return dataclasses.replace(part, **{
-        f: tuple(torch.empty(a.shape, dtype=a.dtype, device="meta")
-                 for a in getattr(part, f)) for f in _BUCKET_FIELDS})
-
-
 class _RankState:
     """One rank's register block and the sweeps of the mesh program.
 
@@ -145,13 +135,14 @@ class _RankState:
     (bank b of a split sample space)."""
 
     def __init__(self, part: Partition2D, g: Graph, cfg: DistributedConfig, mesh, *,
-                 reg_offset: int = 0, rows=None, block: Optional[torch.Tensor] = None,
+                 rows: tuple, reg_offset: int = 0, block: Optional[torch.Tensor] = None,
                  fill: bool = True):
-        """``rows``: this rank's ``(p_rows, c_rows)`` work lists, cut already
-        (``_rank_partition``); else cut here from ``part``. ``block``: this
-        rank's ``(n_loc, j_loc)`` registers to start from (a warm start or a
-        repair), copied, so the caller's tensor is never written; else the
-        fill. ``fill=False`` skips the fill (``refill`` then refuses)."""
+        """``rows``: this rank's ``(p_rows, c_rows)`` work lists
+        (``_rank_partition``); ``part``'s buckets may be shape-only.
+        ``block``: this rank's ``(n_loc, j_loc)`` registers to start from (a
+        warm start or a repair), copied, so the caller's tensor is never
+        written; else the fill. ``fill=False`` skips the fill (``refill``
+        then refuses)."""
         self.part, self.cfg, self.mesh = part, cfg, mesh
         self.variant = resolve_model(cfg.model).variant
         v, s = mesh.coord
@@ -161,8 +152,6 @@ class _RankState:
         self.valid = self.owned < g.n
         self.x = pad_x(torch.from_numpy(np.ascontiguousarray(
             part.x_shards[s], dtype=np.uint32).view(np.int32)).to(dev), j_loc)
-        if rows is None:
-            rows = _cut_rows(part, v, s)
         self.p_rows, self.c_rows = rows
         self.partial = _partial_scratch(self.p_rows + self.c_rows, padded_regs(j_loc), dev)
         self.p_width = [int(a.shape[-1]) for a in part.p_h]
@@ -337,40 +326,22 @@ def _grid(mesh, cfg: DistributedConfig):
     return mesh.mu_v, mesh.mu_s
 
 
-def _partition(g: Graph, x: np.ndarray, mesh, cfg: DistributedConfig, plan, stats: dict):
-    """Every rank's copy of the whole partition (deterministic: the same on
-    each), as the serial ring prepares it."""
+def _rank_partition(g: Graph, mesh, cfg: DistributedConfig, x: np.ndarray, plan,
+                    stats: Optional[dict] = None) -> tuple:
+    """This rank's prep: ``(partition with shape-only buckets, its (p_rows,
+    c_rows) work lists)`` of ``build_shard_2d`` at the mesh's coordinate,
+    on its device; ``plan=None`` plans with ``cfg.partition``. ``stats``
+    gets the prep's host seconds."""
     mu_v, mu_s = _grid(mesh, cfg)
-    return _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=cfg.partition,
-                    pad_mode=cfg.pad_mode, device=mesh.device, stats=stats, plan=plan,
-                    method="fasst" if cfg.fasst else "naive")
-
-
-def _cut_rows(part: Partition2D, v: int, s: int) -> tuple:
-    """The work lists of shard ``(v, s)``'s propagate and cascade buckets."""
-    return (_shard_rows(part, [getattr(part, f) for f in _BUCKET_FIELDS[:5]],
-                        part.p_counts, v, s),
-            _shard_rows(part, [getattr(part, f) for f in _BUCKET_FIELDS[5:]],
-                        part.c_counts, v, s))
-
-
-def _partition_for_plan(g: Graph, mesh, cfg: DistributedConfig, x: np.ndarray, plan,
-                        stats: Optional[dict] = None) -> Partition2D:
-    """The buckets of ``plan`` for ``mesh``'s shard grid (every rank builds
-    the whole partition, as ``_partition`` does)."""
-    if plan.mu_v != mesh.mu_v:
+    if plan is not None and plan.mu_v != mu_v:
         raise ValueError(f"plan has mu_v={plan.mu_v} but the mesh's {cfg.vertex_axis!r} "
-                         f"axis is {mesh.mu_v}-way")
-    return _partition(g, np.asarray(x, dtype=np.uint32), mesh, cfg, plan,
-                      {} if stats is None else stats)
-
-
-def _rank_partition(g: Graph, mesh, cfg: DistributedConfig, x: np.ndarray, plan) -> tuple:
-    """``(partition with shape-only buckets, this rank's work lists)`` of
-    ``_partition_for_plan``: what the warm rounds and the repair take."""
-    part = _partition_for_plan(g, mesh, cfg, x, plan)
-    rows = _cut_rows(part, *mesh.coord)
-    return _keep_own_buckets(part), rows
+                         f"axis is {mu_v}-way")
+    v, s = mesh.coord
+    return build_shard_2d(g, np.asarray(x, dtype=np.uint32), mu_v, mu_s, v, s,
+                          seed=cfg.seed, model=cfg.model,
+                          method="fasst" if cfg.fasst else "naive",
+                          strategy=cfg.partition, plan=plan, pad_mode=cfg.pad_mode,
+                          device=mesh.device, stats=stats)
 
 
 def _rounds(st: _RankState, k: int, cfg: DistributedConfig, total_regs: int,
@@ -417,10 +388,9 @@ def _find_seeds_distributed(g: Graph, k: int, mesh,
         x = make_x_vector(cfg.num_registers, seed=cfg.seed)
     x = np.asarray(x, dtype=np.uint32)
     stats: dict = {"sort_s": time.perf_counter() - t_sort}
-    part = _partition(g, x, mesh, cfg, plan, stats)
+    part, rows = _rank_partition(g, mesh, cfg, x, plan, stats)
     t0 = time.perf_counter()
-    st = _RankState(part, g, cfg, mesh)
-    part = st.part = _keep_own_buckets(part)
+    st = _RankState(part, g, cfg, mesh, rows=rows)
     synchronize(dev)
     t1 = time.perf_counter()
     total_regs = part.mu_s * part.j_loc
@@ -478,12 +448,11 @@ def build_matrix_distributed(g: Graph, mesh, config: Optional[DistributedConfig]
         if cfg.fasst:
             x = np.sort(x)
     x = np.asarray(x, dtype=np.uint32)
-    part = _partition(g, x, mesh, cfg, plan, {})
+    part, rows = _rank_partition(g, mesh, cfg, x, plan)
     t0 = time.perf_counter()
     with trace.span("mesh.build_matrix", phase="build", mu_v=part.mu_v, mu_s=part.mu_s,
                     reg_offset=reg_offset) as sp:
-        st = _RankState(part, g, cfg, mesh, reg_offset=reg_offset)
-        part = st.part = _keep_own_buckets(part)
+        st = _RankState(part, g, cfg, mesh, rows=rows, reg_offset=reg_offset)
         iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
         m = sp.sync(st.gather_matrix(g.n_pad))
     _publish_mesh_profile(part, phase="build", sweeps=iters,

@@ -31,12 +31,12 @@ def make_graph(spec: str, setting: str, seed: int):
     raise ValueError(spec)
 
 
-def add_common_im_args(ap: argparse.ArgumentParser, *,
+def add_common_im_args(ap: argparse.ArgumentParser, *, graph_default: str = "rmat:12",
                        registers_default: int = 1024) -> argparse.ArgumentParser:
     """The workload flags of every launcher, and the ``--trace``/``--metrics``
     group (``add_obs_args``)."""
     grp = ap.add_argument_group("workload")
-    grp.add_argument("--graph", default="rmat:12",
+    grp.add_argument("--graph", default=graph_default,
                      help="rmat:<scale>|rmat-skew:<scale>|er:<n>|ba:<n>|snap:<path>")
     grp.add_argument("--setting", default="0.1",
                      help="0.005|0.01|0.1|N0.05|U0.1|wc (paper §5)")

@@ -6,6 +6,9 @@
 * ``cost``    the cost model (edge and bucket imbalance, pad waste, ring
   bytes), predicted at plan time and measured after the build;
 * ``builder`` ``build_partition_2d``: plan -> bucketed, padded arrays;
+* ``shard``   ``build_shard_2d``: one ``(v, s)`` shard's work lists and the
+  whole partition's counts and shapes, a chunk of edges at a time (a mesh
+  rank's prep);
 * ``serial``  the serial-ring executor, the 2-D ring schedule on one device,
   and its shard-restricted delta repair (``repair_plan_shards``).
 """

@@ -86,13 +86,32 @@ def _bucketize_steps(w_own, k, fields, mu_v: int, widths: np.ndarray):
     return steps
 
 
+#: the padded bucket widths' multiple
+EDGE_BLOCK = 256
+
+
 def _round_up(v: np.ndarray, block: int) -> np.ndarray:
     return v + (-v) % block
 
 
+def _bucket_widths(counts_p: np.ndarray, counts_c: np.ndarray, pad_mode: str,
+                   edge_block: int) -> tuple:
+    """Each ring step's padded bucket width, propagate and cascade, from
+    every shard's bucket counts (``(mu_v, mu_s, mu_v)``), so that every
+    shard pads alike."""
+    mu_v = counts_p.shape[0]
+    if pad_mode == "global":
+        b_max = int(max(counts_p.max(initial=0), counts_c.max(initial=0), 1))
+        b_max += (-b_max) % edge_block
+        widths = np.full(mu_v, b_max, dtype=np.int64)
+        return widths, widths
+    return (_round_up(counts_p.max(axis=(0, 1)), edge_block),
+            _round_up(counts_c.max(axis=(0, 1)), edge_block))
+
+
 @trace.traced("partition.build_buckets", phase="plan", sync=True)
 def build_partition_2d(g: Graph, x: np.ndarray, mu_v: int, mu_s: int, *,
-                       seed: int = 0, method: str = "fasst", edge_block: int = 256,
+                       seed: int = 0, method: str = "fasst", edge_block: int = EDGE_BLOCK,
                        model: str = "wc", plan: Optional[PartitionPlan] = None,
                        pad_mode: str = "step", sampled: Optional[SampledEdges] = None,
                        device=None) -> Partition2D:
@@ -135,13 +154,7 @@ def build_partition_2d(g: Graph, x: np.ndarray, mu_v: int, mu_s: int, *,
                                            ).reshape(mu_v, mu_v).cpu().numpy()
         per_shard.append((ids, ws, wd, kp, kc))
     counts = counts_p.sum(axis=2)
-    if pad_mode == "global":
-        b_max = int(max(counts_p.max(initial=0), counts_c.max(initial=0), 1))
-        b_max += (-b_max) % edge_block
-        widths_p = widths_c = np.full(mu_v, b_max, dtype=np.int64)
-    else:
-        widths_p = _round_up(counts_p.max(axis=(0, 1)), edge_block)
-        widths_c = _round_up(counts_c.max(axis=(0, 1)), edge_block)
+    widths_p, widths_c = _bucket_widths(counts_p, counts_c, pad_mode, edge_block)
 
     p_parts, c_parts = [], []
     for ids, ws, wd, kp, kc in per_shard:

@@ -86,10 +86,11 @@ class PartitionPlan:
 @dataclasses.dataclass(frozen=True)
 class SampledEdges:
     """The preprocessing the planner and the bucket builder share: the
-    model's edge operands as int32 bit patterns on the device, the FASST
-    sample chunks and each sim shard's sampled edge ids (int64, ascending,
-    on the device)."""
+    model's ``EdgeParams`` (host numpy) and its operands as int32 bit
+    patterns on the device, the FASST sample chunks and each sim shard's
+    sampled edge ids (int64, ascending, on the device)."""
 
+    ep: object             # diffusion EdgeParams (h, lo, thr)
     x_shards: np.ndarray   # uint32[mu_s, j_loc]
     masks: tuple           # per sim shard: int64 tensor of sampled edge ids
     h: torch.Tensor
@@ -118,7 +119,7 @@ def sample_edge_sets(g: Graph, x: np.ndarray, mu_s: int, *, seed: int = 0,
         torch.nonzero(sampled_by_any(h, lo, thr, _bits(x_shards[s], dev),
                                      variant=mdl.variant)).flatten()
         for s in range(mu_s))
-    return SampledEdges(x_shards=x_shards, masks=masks, h=h, lo=lo, thr=thr)
+    return SampledEdges(ep=ep, x_shards=x_shards, masks=masks, h=h, lo=lo, thr=thr)
 
 
 def _edge_multiplicity(g: Graph, x: Optional[np.ndarray], mu_s: int, *, seed: int,
@@ -259,16 +260,35 @@ def plan_partition(g: Graph, mu_v: int, *, mu_s: int = 1, strategy: str = "block
     that sample it; without either, plain degrees are used. The plan carries
     its predicted ``PlanStats``, which also set the ``partition.*`` gauges;
     the planning runs in a ``partition.plan`` span."""
-    fn = _STRATEGIES.get(strategy)
+    _strategy(strategy)
+    c_e = _edge_multiplicity(g, x, mu_s, seed=seed, model=model, method=method,
+                             sampled=sampled, device=device)
+    if sampled is not None:
+        j_loc = int(sampled.x_shards.shape[1])
+    else:
+        j_loc = (np.asarray(x).shape[0] // mu_s) if x is not None else 0
+    return _plan_from_multiplicity(g, mu_v, c_e, mu_s=mu_s, strategy=strategy,
+                                   j_loc=j_loc, seed=seed)
+
+
+def _strategy(name: str) -> Callable:
+    fn = _STRATEGIES.get(name)
     if fn is None:
-        raise KeyError(f"unknown partition strategy {strategy!r}; "
+        raise KeyError(f"unknown partition strategy {name!r}; "
                        f"registered: {sorted(_STRATEGIES)}")
+    return fn
+
+
+def _plan_from_multiplicity(g: Graph, mu_v: int, c_e: np.ndarray, *, mu_s: int,
+                            strategy: str, j_loc: int, seed: int = 0) -> PartitionPlan:
+    """``plan_partition`` from each real edge's sim-shard multiplicity
+    (``c_e``, int64[m_real]), as a mesh rank plans from the counts of its
+    chunked sample sets."""
+    fn = _strategy(strategy)
     with trace.span("partition.plan", phase="plan", strategy=strategy, mu_v=mu_v,
                     mu_s=mu_s, n=g.n):
         n_pad = g.n_pad + ((-g.n_pad) % mu_v)
         n_loc = n_pad // mu_v
-        c_e = _edge_multiplicity(g, x, mu_s, seed=seed, model=model, method=method,
-                                 sampled=sampled, device=device)
         w_v = _vertex_weights(g, c_e)
         owner = np.asarray(fn(g, c_e, w_v, mu_v, n_loc, seed), dtype=np.int64)
         if owner.shape[0] != g.n:
@@ -284,10 +304,6 @@ def plan_partition(g: Graph, mu_v: int, *, mu_s: int = 1, strategy: str = "block
         inv_perm = np.argsort(np.concatenate([owner, pad_owner]), kind="stable").astype(np.int32)
         perm = np.empty_like(inv_perm)
         perm[inv_perm] = np.arange(n_pad, dtype=np.int32)
-        if sampled is not None:
-            j_loc = int(sampled.x_shards.shape[1])
-        else:
-            j_loc = (np.asarray(x).shape[0] // mu_s) if x is not None else 0
         stats = predicted_stats(g, strategy, perm, c_e, mu_v, mu_s, n_loc, j_loc)
     metrics.gauge("partition.ring_bytes_per_sweep",
                   strategy=strategy).set(stats.ring_bytes_per_sweep)

@@ -103,21 +103,24 @@ class Backend(abc.ABC):
 
     @abc.abstractmethod
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
-                   x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
+                   x: Optional[np.ndarray] = None, mesh=None, plan=None,
+                   device=None) -> RunReport:
         """The full Alg. 4 loop; seeds are original vertex ids. ``plan``: a
         precomputed ``PartitionPlan`` for a sharded backend (the others
-        ignore it)."""
+        ignore it). ``mesh``: an explicit ``launch.mesh.ProcessMesh``, which
+        only the ``mesh`` backend takes (the others ignore it)."""
 
     @abc.abstractmethod
     def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
                      reg_offset: int = 0, normalized: bool = False, edges=None,
-                     plan=None, device=None):
+                     mesh=None, plan=None, device=None):
         """Fill + propagate to a fixpoint; returns ``(matrix, iters)`` with the
         matrix in the canonical layout on the device. ``normalized=True``
         promises ``g`` sorted by destination and ``x`` sorted already.
         ``edges``: the ``EdgeOperands`` of the normalized graph on the
         device, a hint that only the ``single`` backend takes (a store of
-        several banks uploads them once); ``plan`` as in ``find_seeds``."""
+        several banks uploads them once); ``mesh`` and ``plan`` as in
+        ``find_seeds``."""
 
     def fixpoint(self, m, g: Graph, spec: RunSpec, x: np.ndarray, *, edges=None):
         """Hook: re-propagate an existing canonical matrix to its fixpoint.
@@ -131,10 +134,12 @@ class Backend(abc.ABC):
         raise NotImplementedError(f"backend {self.name!r} has no cascade hook")
 
     def repair_plan_shards(self, g: Graph, spec: RunSpec, x: np.ndarray, planned_m, plan,
-                           touched):
+                           touched, *, mesh=None):
         """Shard-restricted repair of a plan-order matrix; returns
         ``(planned_matrix, sweeps, shards_swept)``. Every backend whose
-        ``capabilities().shard_repair`` is True implements it."""
+        ``capabilities().shard_repair`` is True implements it. ``mesh``: the
+        mesh of a device-resident matrix, which only the ``mesh`` backend
+        takes."""
         raise NotImplementedError(
             f"backend {self.name!r} reports no shard_repair capability")
 
@@ -142,14 +147,19 @@ class Backend(abc.ABC):
 _BACKENDS: Dict[str, Backend] = {}
 
 
-def register_backend(backend: Backend) -> Backend:
-    if backend.name in _BACKENDS:
+def register_backend(backend: Backend, *, overwrite: bool = False) -> Backend:
+    """Register ``backend`` under ``backend.name``; a registered name raises
+    unless ``overwrite``."""
+    if backend.name in _BACKENDS and not overwrite:
         raise ValueError(f"backend {backend.name!r} already registered")
     _BACKENDS[backend.name] = backend
     return backend
 
 
-def get_backend(name: str) -> Backend:
+def get_backend(name) -> Backend:
+    """The backend registered under ``name``; a ``Backend`` passes through."""
+    if isinstance(name, Backend):
+        return name
     b = _BACKENDS.get(name)
     if b is None:
         raise KeyError(f"unknown backend {name!r}; registered: {sorted(_BACKENDS)} "

@@ -43,7 +43,8 @@ class SerialRingBackend(Backend):
         return True, ""
 
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
-                   x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
+                   x: Optional[np.ndarray] = None, mesh=None, plan=None,
+                   device=None) -> RunReport:
         t0 = time.perf_counter()
         spec = apply_tuning(g, spec, self.name, device=device)
         mu_v, mu_s = _grid(spec)
@@ -57,8 +58,9 @@ class SerialRingBackend(Backend):
 
     def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
                      reg_offset: int = 0, normalized: bool = False, edges=None,
-                     plan=None, device=None):
-        # ``edges`` does not apply: the ring buckets its own operands
+                     mesh=None, plan=None, device=None):
+        # ``edges`` and ``mesh`` do not apply: the ring buckets its own
+        # operands on one device
         spec = apply_tuning(g, spec, self.name, device=device)
         cfg = spec.difuser_config()
         if not normalized:
@@ -100,7 +102,7 @@ class SerialRingBackend(Backend):
         return planned.index_select(0, perm), iters
 
     def repair_plan_shards(self, g: Graph, spec: RunSpec, x: np.ndarray, planned_m, plan,
-                           touched):
+                           touched, *, mesh=None):
         """``partition.serial.repair_plan_shards``: ring sweeps restricted to
         the shards a delta dirtied and to those the repair spreads into, on
         the device of ``planned_m``."""

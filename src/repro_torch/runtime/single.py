@@ -30,7 +30,8 @@ class SingleDeviceBackend(Backend):
                                    description="single-device Alg. 4")
 
     def find_seeds(self, g: Graph, k: int, spec: RunSpec, *,
-                   x: Optional[np.ndarray] = None, plan=None, device=None) -> RunReport:
+                   x: Optional[np.ndarray] = None, mesh=None, plan=None,
+                   device=None) -> RunReport:
         t0 = time.perf_counter()
         spec = apply_tuning(g, spec, self.name, device=device)
         res = _difuser.find_seeds(g, k, spec.difuser_config(), x, device=device,
@@ -41,7 +42,7 @@ class SingleDeviceBackend(Backend):
 
     def build_matrix(self, g: Graph, spec: RunSpec, x: np.ndarray, *,
                      reg_offset: int = 0, normalized: bool = False, edges=None,
-                     plan=None, device=None):
+                     mesh=None, plan=None, device=None):
         spec = apply_tuning(g, spec, self.name, device=device)
         m, iters, _ = _difuser.build_sketch_matrix(
             g, spec.difuser_config(), x, reg_offset=reg_offset, normalized=normalized,

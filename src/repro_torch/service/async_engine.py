@@ -113,8 +113,8 @@ class _Mutation:
 class AsyncInfluenceEngine:
     """Future-returning admission front for an :class:`InfluenceEngine`.
 
-    Without ``engine`` it makes one from ``store``, ``spec``, ``slo`` and
-    ``device`` (CUDA unless ``device="cpu"``). ``deadline_ms`` and
+    Without ``engine`` it makes one from ``store``, ``backend``, ``spec``,
+    ``slo`` and ``device`` (CUDA unless ``device="cpu"``). ``deadline_ms`` and
     ``max_resident_mb`` default to ``spec``'s (then 50 ms and no budget).
     The budget covers the store's resident bytes and the cross-entry
     stack."""
@@ -124,10 +124,10 @@ class AsyncInfluenceEngine:
                  deadline_ms: Optional[float] = None,
                  flush_window_s: Optional[float] = None,
                  max_resident_mb: Optional[float] = None,
-                 spec=None, slo=None, device=None):
+                 backend=None, spec=None, slo=None, device=None):
         if engine is None:
-            engine = InfluenceEngine(store=store, max_batch=max_batch, spec=spec, slo=slo,
-                                     device=device)
+            engine = InfluenceEngine(store=store, max_batch=max_batch, backend=backend,
+                                     spec=spec, slo=slo, device=device)
         self.engine = engine
         self.store = engine.store
         if deadline_ms is None:

@@ -83,18 +83,18 @@ class InfluenceEngine:
     """Runs a stream of mixed queries in padded batches against ``store``'s
     entries.
 
-    Without ``store`` the engine makes its own from ``spec`` and ``device``
-    (CUDA unless ``device="cpu"``); with one, those belong to the store and
-    passing them raises. ``slo``: per-class p99 budgets in ms (an
+    Without ``store`` the engine makes its own from ``backend``, ``spec``
+    and ``device`` (CUDA unless ``device="cpu"``); with one, those belong to
+    the store and passing them raises. ``slo``: per-class p99 budgets in ms (an
     ``SLOConfig``, a mapping or ``(class, ms)`` pairs), else ``spec.slo``."""
 
     def __init__(self, store: Optional[SketchStore] = None, max_batch: int = 256, *,
-                 spec=None, slo=None, device=None):
+                 backend=None, spec=None, slo=None, device=None):
         # an empty store is falsy (len 0): compare with None
         if store is None:
-            store = SketchStore(spec=spec, device=device)
-        elif spec is not None or device is not None:
-            raise ValueError("pass spec and device to the SketchStore itself "
+            store = SketchStore(backend=backend, spec=spec, device=device)
+        elif backend is not None or spec is not None or device is not None:
+            raise ValueError("pass backend, spec and device to the SketchStore itself "
                              "when sharing an explicit store")
         self.store = store
         self.max_batch = max_batch

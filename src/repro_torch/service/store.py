@@ -375,14 +375,17 @@ class SketchStore:
 
     ``spec`` (a ``runtime.RunSpec``, for its execution fields: ``backend``,
     ``mu_v``, ``partition``, ...) chooses how the banks are built; every
-    backend returns the same canonical matrix. ``device`` is where the banks
+    backend returns the same canonical matrix. ``backend`` (a registered
+    name or a ``runtime.Backend``) overrides the spec's choice, so any
+    registered backend can build the banks. ``device`` is where the banks
     live: CUDA unless ``device="cpu"`` is passed.
     """
 
-    def __init__(self, num_banks: int = 1, spec=None, device=None):
+    def __init__(self, num_banks: int = 1, backend=None, spec=None, device=None):
         if num_banks < 1:
             raise ValueError(f"num_banks must be at least 1, got {num_banks}")
         self.num_banks = num_banks
+        self.backend = backend   # str | runtime.Backend | None (the spec's choice)
         self.spec = spec
         self.device = resolve_device(device)
         self._entries: dict = {}
@@ -397,10 +400,13 @@ class SketchStore:
 
     def _resolve_backend(self, cfg: DiFuserConfig):
         """The (backend, RunSpec) that builds run through: ``cfg``'s sketch
-        fields over ``self.spec``'s execution fields."""
-        from repro_torch.runtime import RunSpec, resolve_backend
+        fields over ``self.spec``'s execution fields; ``self.backend``, when
+        set, in place of the spec's choice."""
+        from repro_torch.runtime import RunSpec, get_backend, resolve_backend
 
         spec = RunSpec.from_config(cfg, base=self.spec)
+        if self.backend is not None:
+            return get_backend(self.backend), spec
         return resolve_backend(spec), spec
 
     def __len__(self) -> int:
@@ -570,13 +576,14 @@ class SketchStore:
             self._swap_hooks.append(fn)
 
     def shadow(self, key: StoreKey) -> "SketchStore":
-        """The double buffer: a new store (same banks, spec and device)
+        """The double buffer: a new store (same banks, backend, spec and device)
         holding ``clone_for_update`` of ``key``'s entry (an evicted
         one is rebuilt first). A mutation (``apply_delta``, ``rebuild``)
         runs against the shadow while this store serves version N;
         ``swap_entry`` then installs the shadow's entry."""
         e = self.entry(key)
-        s = SketchStore(num_banks=self.num_banks, spec=self.spec, device=self.device)
+        s = SketchStore(num_banks=self.num_banks, backend=self.backend, spec=self.spec,
+                        device=self.device)
         s._entries[key] = e.clone_for_update()
         return s
 

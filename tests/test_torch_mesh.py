@@ -10,9 +10,11 @@ the port's ``serial`` and ``single`` seeds; the ranks call only the plain
 versions of the six kernels the path runs and launch nothing. The build is
 byte-equal to the reference's mesh build and to the port's serial build.
 ``fm_mean`` and ``--no-fasst`` follow the reference's mesh, not its serial
-ring. Also: ``supports`` and ``auto`` without a group and with one too
-small, the front door under ``torch.distributed.run``, and ``im
---no-fasst`` on ``single`` and ``serial`` against the reference launcher.
+ring. In the ranks' processes the whole partition's build and its
+graph-wide sample sets raise, so no rank builds more than its own shard.
+Also: ``supports`` and ``auto`` without a group and with one too small,
+the front door under ``torch.distributed.run``, and ``im --no-fasst`` on
+``single`` and ``serial`` against the reference launcher.
 """
 import json
 import os
@@ -83,8 +85,26 @@ print(json.dumps(info))
 """
 
 
+def _whole_build(*args, **kwargs):
+    raise AssertionError("a mesh rank built the whole partition")
+
+
+def _refuse_whole_builds():
+    """In this rank's process, every name through which code reaches the
+    whole partition's build or its graph-wide sample sets raises: each mesh
+    rank prepares only its own shard (``partition.shard``)."""
+    from repro_torch.partition import builder, plan, serial
+
+    for module, name in ((builder, "build_partition_2d"), (serial, "build_partition_2d"),
+                         (serial, "_prepare"), (plan, "sample_edge_sets"),
+                         (builder, "sample_edge_sets"), (serial, "sample_edge_sets")):
+        assert hasattr(module, name), (module, name)
+        setattr(module, name, _whole_build)
+
+
 def _port_world(rank, cases, builds, graph, k):
-    """Every case on one rank of the world; returns this rank's results."""
+    """Every case on one rank of the world, with the whole partition's build
+    refused; returns this rank's results."""
     import warnings
 
     import torch.distributed as dist
@@ -96,6 +116,7 @@ def _port_world(rank, cases, builds, graph, k):
     from repro_torch.obs import shardprof
     from repro_torch.runtime import RunSpec, get_backend, resolve_backend, run
 
+    _refuse_whole_builds()
     g = make_graph(graph, "0.1", 0)
     out = {"world": dist.get_world_size()}
     mesh_b = get_backend("mesh")

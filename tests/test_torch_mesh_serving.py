@@ -336,7 +336,7 @@ def _main_case(store, e, host, he, cfg, inp, r, port_snap):
     """Engines, the async engine with a delta in flight, the mesh repairs
     against the serial one, and a removal then a top-k."""
     from repro_torch.core.difuser import find_seeds
-    from repro_torch.core.distributed import _partition_for_plan
+    from repro_torch.core.distributed import _rank_partition
     from repro_torch.kernels import counters
     from repro_torch.launch.serve_im import make_workload
     from repro_torch.runtime import RunSpec
@@ -387,7 +387,7 @@ def _main_case(store, e, host, he, cfg, inp, r, port_snap):
     r["delta1"] = _repair_record(rep, rep_s, e, host.entry(he.key), cfg)
     # rank 0's merges against a repair that merged every ring step of every sweep
     dcfg = RunSpec.from_config(cfg).distributed_config()
-    part = _partition_for_plan(e.graph, e.mesh, dcfg, e.x, e.plan)
+    part, _ = _rank_partition(e.graph, e.mesh, dcfg, e.x, e.plan)
     r["delta1"]["merges"] = (merges, rep.repair_sweeps
                              * sum(int(a.shape[-1]) > 0 for a in part.p_h))
     rep = apply_delta(store, e.key, _delta(deltas[2]))

@@ -16,7 +16,9 @@ predicates of ``core/sampling.py``, the model registry and
 statistics to ``rtol=1e-6``; everything else exactly.
 """
 import ast
+import dataclasses
 import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +89,51 @@ EXCLUDED = {
                                                 "(ROADMAP §1.4)",
     "repro.runtime:warn_deprecated": "the reference's deprecation shims: the port has no "
                                      "deprecated entry points",
+}
+
+
+_KNOBS = ("the Pallas bodies' block and tiling knobs and their impl switch: the CUDA "
+          "kernels take any shape and a wrapper picks its kernel by the tensor's device "
+          "(ROADMAP §1.4)")
+_OPERANDS = ("the edge operands (src, dst, h, lo, thr and the hash seed, or a bucket's w, "
+             "r, t) travel bundled in ``kernels.edges.EdgeOperands``/``EdgeRows``, and the "
+             "predicate as the kernels' compiled-in ``variant``")
+_EDGES = ("src", "dst", "thr", "h", "lo", "seed", "predicate")
+#: where a reference parameter has no counterpart of its name: ``"*"`` for
+#: parameters left out wherever they appear, else ``"module:name"`` (the
+#: reference's) -> (its parameters left out, why)
+PARAM_EXCLUDED = {
+    "*": (("impl", "edge_block", "reg_tile", "edge_chunk", "cascade_chunk", "default_chunk",
+           "vertex_block", "lane_tile", "interpret"), _KNOBS),
+    **{key: (_EDGES, _OPERANDS) for key in (
+        "repro.core.cascade:cascade_from_seed", "repro.core.simulate:propagate_to_fixpoint",
+        "repro.kernels.ops:propagate_sweep", "repro.kernels.ops:cascade_sweep",
+        "repro.kernels.ops:fused_sweep",
+        "repro.kernels.sketch_propagate:propagate_sweep_pallas",
+        "repro.kernels.cascade_step:cascade_sweep_pallas",
+        "repro.kernels.fused_sweep:fused_sweep_pallas",
+        "repro.kernels.ref:propagate_sweep_ref", "repro.kernels.ref:cascade_sweep_ref",
+        "repro.kernels.ref:fused_sweep_ref")},
+    **{key: (("src", "dst", "seed", "predicate"), _OPERANDS) for key in (
+        "repro.kernels.ops:fused_sample", "repro.kernels.fused_sample:fused_sample_pallas",
+        "repro.kernels.ref:fused_sample_ref")},
+    "repro.kernels.bucket_propagate:bucket_propagate_pallas": (
+        ("h", "w", "r", "t", "lo", "predicate"), _OPERANDS),
+    "repro.kernels.common:kregister_hash": (
+        ("vertex", "reg"), "the in-kernel hash's torch twin takes the kernels' operand names "
+                           "(u, j); the numpy ``register_hash`` keeps the reference's"),
+    **{f"repro.core.distributed:{name}": (
+        ("planned_m",), "a rank holds its block of the plan-order matrix, ``planned_block``, "
+                        "where the reference's single controller holds the whole matrix")
+       for name in ("find_seeds_warm_distributed", "repair_plan_shards_distributed")},
+    **{f"repro.launch.dryrun:{name}": (
+        ("mesh",), "the dry run takes the grid's shape (``grid``, a ``MeshShape``) where "
+                   "the reference takes a jax ``Mesh`` of fake devices")
+       for name in ("lower_im_cell", "run_cell")},
+    **{key: (("hlo_text",), "no HLO: the collective stats read the exchange's records and "
+                            "the op profile a ``torch.profiler`` run")
+       for key in ("repro.utils.hlo:collective_stats", "repro.utils.hloprof:dot_flop_profile",
+                   "repro.utils.hloprof:print_profile")},
 }
 
 
@@ -162,6 +209,229 @@ def test_the_map_and_the_exclusions_are_all_needed():
     for key in NAME_MAP:
         assert key in surface, key
     assert sum(key.endswith("_pallas") for key in NAME_MAP) == len(_KERNELS)
+
+
+def _params(fn: ast.FunctionDef) -> list:
+    a = fn.args
+    return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs if p.arg not in ("self", "cls")]
+
+
+def _decorated(node, names) -> bool:
+    for d in node.decorator_list:
+        d = d.func if isinstance(d, ast.Call) else d
+        if (d.attr if isinstance(d, ast.Attribute) else getattr(d, "id", "")) in names:
+            return True
+    return False
+
+
+def _reference_parameters() -> dict:
+    """``"module:name"`` -> the parameter names of every public function and
+    public method of ``src/repro/``, and a public class's constructor
+    parameters (its dataclass or NamedTuple fields and ``__init__``'s),
+    read from the source; private fields and properties are left out."""
+    out = {}
+    for path in sorted(REF.rglob("*.py")):
+        parts = [p for p in path.relative_to(REF).with_suffix("").parts if p != "__init__"]
+        mod = ".".join(["repro", *parts])
+        for node in ast.parse(path.read_text()).body:
+            if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) or node.name.startswith("_"):
+                continue
+            if isinstance(node, ast.FunctionDef):
+                out[f"{mod}:{node.name}"] = _params(node)
+            elif isinstance(node, ast.ClassDef):
+                fields = []
+                if _decorated(node, ("dataclass",)) or any(
+                        getattr(b, "id", None) == "NamedTuple" for b in node.bases):
+                    fields = [a.target.id for a in node.body if isinstance(a, ast.AnnAssign)
+                              and isinstance(a.target, ast.Name)
+                              and not a.target.id.startswith("_")]
+                for sub in node.body:
+                    if not isinstance(sub, ast.FunctionDef):
+                        continue
+                    if sub.name == "__init__":
+                        fields += _params(sub)
+                    elif not sub.name.startswith("_") and not _decorated(
+                            sub, ("property", "setter", "cached_property")):
+                        out[f"{mod}:{node.name}.{sub.name}"] = _params(sub)
+                if fields:
+                    out[f"{mod}:{node.name}"] = fields
+    return out
+
+
+def _port_parameters(path: str) -> set:
+    """The parameter names the port's counterpart takes: its signature's and,
+    for a dataclass or NamedTuple, its fields."""
+    mod, name = path.split(":")
+    obj = importlib.import_module(mod)
+    for attr in name.split("."):
+        obj = getattr(obj, attr)
+    names = set(inspect.signature(obj).parameters)
+    if dataclasses.is_dataclass(obj):
+        names |= {f.name for f in dataclasses.fields(obj)}
+    return names | set(getattr(obj, "_fields", ()))
+
+
+def _excluded_parameters(key: str) -> set:
+    return set(PARAM_EXCLUDED["*"][0]) | set(PARAM_EXCLUDED.get(key, ((), ""))[0])
+
+
+def test_every_reference_parameter_has_a_counterpart():
+    """Each parameter and field of the reference's public functions, methods
+    and classes is a parameter or field of its counterpart in the port (the
+    first ``NAME_MAP`` gives for a renamed one), unless ``PARAM_EXCLUDED``
+    says why not."""
+    params = _reference_parameters()
+    assert len(params) > 300
+    missing = []
+    for key, names in params.items():
+        if key in EXCLUDED:
+            continue
+        target = NAME_MAP.get(key, ("repro_torch" + key[len("repro"):],))[0]
+        got = _port_parameters(target)
+        missing += [f"{key}({p}) -> {target}" for p in names
+                    if p not in got and p not in _excluded_parameters(key)]
+    assert not missing, "\n".join(missing)
+
+
+def test_every_parameter_exclusion_is_needed():
+    """Each excluded parameter is the reference's and missing from the port's
+    counterpart, and has its reason."""
+    params = _reference_parameters()
+    seen = set()
+    for key, names in params.items():
+        if key in EXCLUDED:
+            continue
+        target = NAME_MAP.get(key, ("repro_torch" + key[len("repro"):],))[0]
+        seen |= {p for p in set(names) & set(PARAM_EXCLUDED["*"][0])
+                 if p not in _port_parameters(target)}
+    assert seen == set(PARAM_EXCLUDED["*"][0])
+    for key, (names, why) in PARAM_EXCLUDED.items():
+        assert why
+        if key == "*":
+            continue
+        target = NAME_MAP.get(key, ("repro_torch" + key[len("repro"):],))[0]
+        assert set(names) <= set(params[key]), key
+        assert not set(names) & _port_parameters(target), key
+
+
+# -- the parameters behind the names: backend=, mesh=, overwrite=, graph_default=, ep --
+
+def test_store_backend_override_builds_the_references_banks():
+    """``SketchStore(backend="serial")`` builds through the serial ring (its
+    bucket merges run; the spec alone would pick the single path) banks
+    byte-equal to the reference's store with the same override; the shadow
+    keeps the backend; a ``Backend`` instance overrides as a name does."""
+    from repro.core.difuser import DiFuserConfig as R_Config
+    from repro.launch.common import make_graph as ref_graph
+    from repro.runtime import RunSpec as R_RunSpec
+    from repro.service import SketchStore as R_Store
+    from repro_torch.core.difuser import DiFuserConfig
+    from repro_torch.kernels import counters
+    from repro_torch.launch.common import make_graph
+    from repro_torch.runtime import RunSpec, get_backend
+    from repro_torch.service import SketchStore
+
+    cfg = DiFuserConfig(num_registers=64)
+    want = R_Store(num_banks=2, backend="serial", spec=R_RunSpec(mu_v=2)).get_or_build(
+        ref_graph("rmat:8", "0.1", 0), R_Config(num_registers=64, impl="ref"))
+    for backend in ("serial", get_backend("serial")):
+        store = SketchStore(num_banks=2, backend=backend, spec=RunSpec(mu_v=2), device="cpu")
+        counters.reset()
+        got = store.get_or_build(make_graph("rmat:8", "0.1", 0), cfg)
+        assert counters.PLAIN_CALLS.get("bucket_propagate", 0) > 0
+        assert "propagate_sweep" not in counters.PLAIN_CALLS
+        assert len(got.banks) == 2
+        for a, b in zip(got.banks, want.banks):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert store.shadow(got.key).backend is backend
+    assert SketchStore(device="cpu").backend is None
+
+
+def test_engines_take_backend_and_refuse_it_beside_a_store():
+    from repro.service import InfluenceEngine as R_Engine
+    from repro.service import SketchStore as R_Store
+    from repro_torch.service import AsyncInfluenceEngine, InfluenceEngine, SketchStore
+
+    with pytest.raises(ValueError, match="SketchStore itself"):
+        R_Engine(R_Store(), backend="serial")
+    store = SketchStore(device="cpu")
+    for kw in ({"backend": "serial"}, {"spec": object()}, {"device": "cpu"}):
+        with pytest.raises(ValueError, match="SketchStore itself"):
+            InfluenceEngine(store, **kw)
+    assert InfluenceEngine(backend="serial", device="cpu").store.backend == "serial"
+    with AsyncInfluenceEngine(backend="serial", device="cpu") as aeng:
+        assert aeng.store.backend == "serial"
+
+
+def test_register_backend_overwrite_and_get_backend_passes_an_instance():
+    from repro.runtime import base as R_base
+    from repro_torch.runtime import base
+
+    saved = dict(base._BACKENDS)
+    try:
+        for mod in (R_base, base):
+            b = mod.get_backend("serial")
+            assert mod.get_backend(b) is b
+            clone = type(b)()
+            with pytest.raises(ValueError, match="already registered"):
+                mod.register_backend(clone)
+            assert mod.get_backend("serial") is b
+            if mod is base:   # the reference's registry is left as it is
+                assert base.register_backend(clone, overwrite=True) is clone
+                assert base.get_backend("serial") is clone
+    finally:
+        base._BACKENDS.clear()
+        base._BACKENDS.update(saved)
+
+
+def test_single_and_serial_backends_ignore_a_mesh():
+    from repro_torch.core.sketch import VISITED
+    from repro_torch.launch.common import make_graph
+    from repro_torch.partition import plan_partition
+    from repro_torch.runtime import RunSpec, get_backend
+
+    g = make_graph("rmat:7", "0.1", 0)
+    mesh = object()   # not a mesh at all: both ignore it, as the reference's do
+    for name, spec in (("single", RunSpec(num_registers=32)),
+                       ("serial", RunSpec(num_registers=32, mu_v=2))):
+        b = get_backend(name)
+        want = b.find_seeds(g, 2, spec, device="cpu").result
+        got = b.find_seeds(g, 2, spec, mesh=mesh, device="cpu").result
+        np.testing.assert_array_equal(got.seeds, want.seeds)
+        m, _ = b.build_matrix(g, spec, want.x, device="cpu")
+        m2, _ = b.build_matrix(g, spec, want.x, mesh=mesh, device="cpu")
+        assert torch.equal(m, m2)
+    # a repair from an all-VISITED matrix (inert: one sweep) with and without
+    gs = g.sorted_by_dst()
+    plan = plan_partition(gs, 2, device="cpu")
+    planned = torch.full((plan.n_pad, 32), VISITED, dtype=torch.int8)
+    serial, x = get_backend("serial"), np.sort(want.x)
+    want = serial.repair_plan_shards(gs, spec, x, planned, plan, (0, 1))
+    got = serial.repair_plan_shards(gs, spec, x, planned, plan, (0, 1), mesh=mesh)
+    assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+
+
+def test_common_im_args_graph_default_and_sampled_edges_ep():
+    import argparse
+
+    from repro.launch.common import add_common_im_args as ref_args
+    from repro.launch.common import make_graph as ref_graph
+    from repro.partition import plan as R_plan
+    from repro_torch.launch.common import add_common_im_args, make_graph
+    from repro_torch.partition import plan as T_plan
+
+    for fn in (ref_args, add_common_im_args):
+        args = fn(argparse.ArgumentParser(), graph_default="rmat:7").parse_args([])
+        assert args.graph == "rmat:7"
+    x = np.sort(np.random.default_rng(0).integers(0, 1 << 32, 64, dtype=np.uint64)
+                .astype(np.uint32))
+    want = R_plan.sample_edge_sets(ref_graph("rmat:8", "0.1", 0), x, 2, model="lt")
+    got = T_plan.sample_edge_sets(make_graph("rmat:8", "0.1", 0), x, 2, model="lt",
+                                  device="cpu")
+    for f in ("h", "lo", "thr"):
+        a, b = getattr(got.ep, f), getattr(want.ep, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert got.h.numpy().view(np.uint32).tobytes() == got.ep.h.tobytes()
 
 
 # -- core/sketch.py ------------------------------------------------------------------

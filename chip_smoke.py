@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,6,11  # device-resident serving (11 needs 6)
     python3 chip_smoke.py --phases 1,4,4b,10,12  # the dry run (12 needs 10)
     python3 chip_smoke.py --phases 1,13   # FASST's partition and Table 5-7 metrics
+    python3 chip_smoke.py --phases 1,14   # the port's scripts; the other models at full size
 
 Phases (each raises on failure; none is caught):
 
@@ -136,7 +137,7 @@ Phases (each raises on failure; none is caught):
    ``MESH_WHOLE_PARTITION_PEAK_GIB``, the peak when every rank built the
    whole partition; (e) ``python
    -m torch.distributed.run --nproc-per-node 4 -m repro_torch im --devices 4
-   --backend mesh`` at rmat:16, seeds equal to the serial backend's. The
+   --backend mesh`` at rmat:14, seeds equal to the serial backend's. The
    shared-card world time-slices one card and exchanges through host
    memory: it is no multi-GPU speed figure;
 11. device-resident serving (needs 6): phase 6's index (rmat:20, J = 512,
@@ -160,7 +161,7 @@ Phases (each raises on failure; none is caught):
    kernels, no other kernel, no plain call; ``launches_mesh_serve``,
    summed);
    (e) ``python -m torch.distributed.run --nproc-per-node 4 -m repro_torch
-   serve --residency device --plan-shards 4`` at rmat:16, its answers equal
+   serve --residency device --plan-shards 4`` at rmat:14, its answers equal
    to a host-resident run's. As in phase 10 the ranks time-slice one card
    and exchange through host memory: no multi-GPU figure;
 12. the dry run held against the card (needs 10; (c) checks its seeds
@@ -192,7 +193,25 @@ Phases (each raises on failure; none is caught):
    sorted and unsorted), each timed, on the kernel path and on the plain
    path: arrays byte-equal, floats equal, the counters showing which path
    ran; and ``core.sketch.fill_registers`` with row ids against
-   ``sketch_fill_plain`` with the same ids.
+   ``sketch_fill_plain`` with the same ids;
+14. the port's scripts and the model zoo at full size: (a)
+   ``examples_torch/quickstart.py`` (rmat:10), ``influence_service.py``
+   (rmat:12) and ``scripts_torch/check_models.py`` (ER n = 1,024) in this
+   process with ``--device cuda``, each on the kernel path and on the plain
+   path: exit 0, result lines equal (qps, p50/p99 and "amortized" lines
+   dropped, wall seconds masked), the counters showing which path ran;
+   ``examples_torch/distributed_im.py`` (rmat:12) as its own command, 8
+   ranks under ``torch.distributed.run`` sharing the card (gloo,
+   host-staged), started through ``DIST_RUNNER`` so that each rank writes
+   its counts as it leaves the world: exit 0, ``auto`` on the mesh, its own
+   check of mesh seeds against single-device seeds, every rank's mesh run
+   launched ``DIST_KERNELS`` and no plain version, and its rank-0 single
+   half run here on both paths, equal, its spread the script's; (b) ic:0.1, dic:1.0 and lt
+   through ``repro_torch.launch.im`` at phase 4's size (rmat:20, setting
+   0.1, J=1024, K=50, phase 4's graph), each checked as phase 4 is: prep,
+   build, rounds and total seconds, sweeps, rebuilds, launches and peak
+   memory printed; every main-path kernel launched, no plain call, seeds
+   distinct and in range.
 
 Phase 3 also drives the service at rmat:14, J=256 on both paths: a 2-bank
 store built by the ``single`` and by the ``serial`` backend, 256 mixed
@@ -211,8 +230,10 @@ launcher and async engines, ``launches_repair`` phase 8's repairs,
 ``launches_tune`` phase 9's tuning and tuned runs, ``launches_mesh``
 phase 10 (a)'s ranks, summed, ``launches_mesh_serve`` phase 11's ranks
 from placement to the mesh repair, summed, ``launches_fasst`` phase 13's
-kernel path; the ``sketch_fill`` row also carries phase 5's owned-rows fill,
-``ids_*``), the
+kernel path, ``launches_scripts`` phase 14 (a)'s three in-process scripts'
+kernel paths and ``distributed_im``'s 8 ranks' mesh runs, summed,
+``launches_models`` phase 14 (b)'s three runs; the ``sketch_fill`` row also
+carries phase 5's owned-rows fill, ``ids_*``), the
 ``nvidia-smi`` line, and last the contract line ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository around it, it
 exits non-zero before printing any. Longer output goes to
@@ -981,7 +1002,10 @@ def phase_service_parity(g) -> None:
 
 # --------------------------------------------------------------- phase 4 ----
 
-def phase_full(k: int) -> dict:
+def phase_full(k: int, model: str = FULL["model"], tag: str = "4") -> dict:
+    """Phase 4 (and, for the other models, phase 14 (b)): the launcher at
+    full size on phase 4's graph, the counters reset before it and read
+    after it."""
     import numpy as np
     import torch
 
@@ -989,27 +1013,28 @@ def phase_full(k: int) -> dict:
     from repro_torch.launch import im
 
     argv = ["--graph", FULL["graph"], "--setting", FULL["setting"], "--model",
-            FULL["model"], "--registers", str(FULL["registers"]), "--k", str(k)]
+            model, "--registers", str(FULL["registers"]), "--k", str(k)]
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
-    out = im.run(argv)
+    with _reuse_full_graph(im):   # generated once, outside the launcher's clock
+        out = im.run(argv)
     launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[4] {FULL['graph']} n={out['n']} m={out['m']} J={FULL['registers']} K={k}: "
-        f"prep {out['prep_s']:.3f}s, build {out['build_s']:.3f}s "
-        f"({out['propagate_iters']} sweeps), rounds {out['rounds_s']:.3f}s ({out['cascade_sweeps']} cascade sweeps, "
-        f"{out['rebuild_sweeps']} rebuild sweeps), total {out['time_s']:.2f}s, "
-        f"rebuilds {out['rebuilds']}/{k}, max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"[4] launches {launches}; plain calls {plain}")
-    check(not plain, f"plain versions ran on the main path: {plain}")
-    missing = [n for n in ("sketch_fill", "sketch_cardinality", "sketch_propagate",
-                           "cascade_step") if launches.get(n, 0) <= 0]
-    check(not missing, f"kernels not launched on the main path: {missing}")
+    log(f"[{tag}] {FULL['graph']} {model} n={out['n']} m={out['m']} J={FULL['registers']} "
+        f"K={k}: prep {out['prep_s']:.3f}s, build {out['build_s']:.3f}s "
+        f"({out['propagate_iters']} sweeps), rounds {out['rounds_s']:.3f}s "
+        f"({out['cascade_sweeps']} cascade sweeps, {out['rebuild_sweeps']} rebuild "
+        f"sweeps), total {out['time_s']:.2f}s, rebuilds {out['rebuilds']}/{k}, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"[{tag}] launches {launches}; plain calls {plain}")
+    check(not plain, f"{model}: plain versions ran on the main path: {plain}")
+    missing = [n for n in SINGLE_KERNELS if launches.get(n, 0) <= 0]
+    check(not missing, f"{model}: kernels not launched on the main path: {missing}")
     seeds = np.asarray(out["seeds"])
-    check(len(seeds) == k and len(set(seeds.tolist())) == k, "seeds not distinct")
-    check(((seeds >= 0) & (seeds < out["n"])).all(), "seed outside [0, n)")
+    check(len(seeds) == k and len(set(seeds.tolist())) == k, f"{model}: seeds not distinct")
+    check(((seeds >= 0) & (seeds < out["n"])).all(), f"{model}: seed outside [0, n)")
     check(np.isfinite(out["difuser_score"]) and out["difuser_score"] > 0,
-          f"influence estimate {out['difuser_score']}")
+          f"{model}: influence estimate {out['difuser_score']}")
     out.update(launches=launches, peak_bytes=peak)
     return out
 
@@ -2302,7 +2327,7 @@ MESH_RANKS = 4
 MESH_ALLGATHER_K = 8
 MESH_BUILD_REGS = 512
 MESH_NCCL = dict(graph="rmat:14", registers=256, k=8)
-MESH_LAUNCHER_GRAPH = "rmat:16"
+MESH_LAUNCHER_GRAPH = "rmat:14"
 MESH_TIMEOUT_S = 600.0
 # (a)'s rank peak (max_memory_allocated, GiB) when each rank filled the whole
 # n_pad x j_loc matrix and then kept its owned rows (the port at commit
@@ -2668,9 +2693,9 @@ def phase_mesh(full: dict, serial: dict, k: int) -> dict:
 # phase 11: phase 6's index placed on a serving mesh of 4 ranks sharing the
 # card (gloo, host-staged) under a 4-shard block plan (4, not the serve
 # launcher's 8, bounds the chip time; phase 8 keeps the 8-shard plan on the
-# serial ring); (e) the launcher's --residency device at rmat:16
+# serial ring); (e) the launcher's --residency device at rmat:14
 SERVING = dict(ranks=4, strategy="block")
-SERVING_LAUNCHER_GRAPH = "rmat:16"
+SERVING_LAUNCHER_GRAPH = "rmat:14"
 # a follower's peak (GiB) when every rank built the whole partition (the port
 # at commit 9d529ac, on this card), and the most predicted now that each
 # rank prepares only its own shard (printed, not a gate)
@@ -3232,9 +3257,186 @@ def phase_fasst() -> dict:
     return dict(launches=launches, results=results, phase_s=phase_s)
 
 
+# -------------------------------------------------------------- phase 14 ----
+
+# phase 14: (a) the port's scripts at their own sizes (rmat:10, rmat:12, ER
+# n = 1,024); (b) every registered model but wc (phase 4's) at phase 4's size
+SCRIPTS = {"examples_torch/quickstart.py": SINGLE_KERNELS + ("fused_sample",),
+           "examples_torch/influence_service.py": SINGLE_KERNELS,
+           "scripts_torch/check_models.py": SINGLE_KERNELS}
+DIST_SCRIPT = "examples_torch/distributed_im.py"
+DIST_TIMEOUT_S = 300.0
+# the kernels every rank of distributed_im's mesh run launches (its spec keeps
+# the unfused ring sweeps, so fused_sweep is not among them)
+DIST_KERNELS = ("fused_sample", "sketch_fill", "sketch_cardinality", "bucket_propagate",
+                "bucket_cascade")
+# argv: output directory, script, its arguments. Runs the script; each rank
+# writes its counts when it leaves the world (the mesh run's end; rank 0's
+# single-device half comes after it), to <output directory>/rank<R>.json.
+# The script re-executes its whole command line under torch.distributed.run,
+# so every rank runs this too.
+DIST_RUNNER = """
+import json, os, runpy, sys
+from repro_torch.kernels import counters
+from repro_torch.launch import mesh
+out, script = sys.argv[1], sys.argv[2]
+leave = mesh.shutdown_world
+def count_then_leave():
+    if mesh.env_world():
+        with open(os.path.join(out, "rank%s.json" % os.environ["RANK"]), "w") as f:
+            json.dump(dict(launches=counters.LAUNCHES, plain=counters.PLAIN_CALLS), f)
+    leave()
+mesh.shutdown_world = count_then_leave
+counters.reset()
+sys.argv = [script] + sys.argv[3:]
+runpy.run_path(script, run_name="__main__")
+"""
+ZOO = ("ic:0.1", "dic:1.0", "lt")
+RESULT_WORDS = ("qps", "p50", "p99", "amortized")
+
+
+def result_lines(stdout: str) -> list:
+    """A script's result lines: those of qps, p50/p99 and "amortized"
+    dropped, and every ``<number>s`` (a wall time) masked. The CPU tests of
+    the scripts (``tests/test_torch_examples.py``) compare by this too."""
+    import re
+
+    return [re.sub(r"\b\d+(?:\.\d+)?s\b", "<t>s", line) for line in stdout.splitlines()
+            if not any(word in line for word in RESULT_WORDS)]
+
+
+def _run_script(path: Path) -> str:
+    """Run a script in this process on the card; its standard output."""
+    import io
+    import runpy
+
+    import torch
+
+    buf = io.StringIO()
+    argv, sys.argv = sys.argv, [str(path), "--device", "cuda"]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+    except SystemExit as e:
+        check(e.code in (0, None), f"{path.name} exited with {e.code}: {buf.getvalue()}")
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    return buf.getvalue()
+
+
+def _same_lines(kern: str, plain: str, what: str) -> None:
+    check(result_lines(kern) == result_lines(plain),
+          f"{what}: kernel path printed {kern!r}, plain path {plain!r}")
+
+
+def phase_scripts() -> dict:
+    """Phase 14 (a): the three single-process scripts in this process, on the
+    kernel path and on the plain path (result lines equal); then
+    ``distributed_im``'s 8 ranks under ``torch.distributed.run``, sharing
+    the card, and its rank-0 single half here, kernel path against plain."""
+    import runpy
+    import shutil
+
+    from repro_torch.kernels import counters
+    from repro_torch.runtime import run
+
+    launches: dict = {}
+    seconds = {}
+    OUT.mkdir(parents=True, exist_ok=True)
+    for rel, kernels in SCRIPTS.items():
+        path = ROOT / rel
+        counts = []   # each run's launches, read before the next reset
+
+        def drive():
+            out = _run_script(path)
+            counts.append(dict(counters.LAUNCHES))
+            return out
+
+        out, t_k, t_p = _kernel_and_plain(drive, kernels, f"14a {path.name}",
+                                          same=_same_lines)
+        for name, c in counts[0].items():   # the kernel path's run
+            launches[name] = launches.get(name, 0) + c
+        (OUT / f"{path.stem}.log").write_text(out)
+        seconds[path.stem] = dict(kernel_s=t_k, plain_s=t_p)
+        log(f"[14a] {rel}: exit 0, result lines equal the plain path's; kernel path "
+            f"{t_k:.2f}s, plain path {t_p:.2f}s; launches {counts[0]}")
+        for line in out.splitlines():
+            if any(w in line for w in ("qps", "warm TopKSeeds", "check_models.")):
+                log(f"[14a] {path.stem}: {line}")
+    # distributed_im: 8 ranks sharing the card (gloo, host-staged exchanges),
+    # started through DIST_RUNNER so that each rank reports its counts
+    ranks_dir = OUT / "distributed_im_ranks"
+    shutil.rmtree(ranks_dir, ignore_errors=True)
+    ranks_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DIST_RUNNER, str(ranks_dir),
+                           str(ROOT / DIST_SCRIPT)], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+    dist_s = time.perf_counter() - t0
+    (OUT / "distributed_im.log").write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    check(proc.returncode == 0, f"14a distributed_im failed: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line:
+            log(f"[14a] distributed_im: {line}")
+    check(sum(ln.startswith("graph: ") for ln in lines) == 1, "14a: rank 0 alone prints")
+    check(any(ln.startswith("sharded (2x4 mesh, ring): ") for ln in lines),
+          "14a: distributed_im did not run on the mesh")
+    check("distributed == single-device: bitwise identical seeds" in lines,
+          "14a: distributed_im's mesh seeds differ from its single-device seeds")
+    ns = runpy.run_path(str(ROOT / DIST_SCRIPT), run_name="distributed_im")
+    rank_counts = {}
+    for r in range(ns["RANKS"]):
+        path = ranks_dir / f"rank{r}.json"
+        check(path.exists(), f"14a: distributed_im's rank {r} wrote no counts")
+        rank_counts[r] = json.loads(path.read_text())
+        got, plain = rank_counts[r]["launches"], rank_counts[r]["plain"]
+        missing = [n for n in DIST_KERNELS if got.get(n, 0) <= 0]
+        check(not missing, f"14a: distributed_im's rank {r} launched none of {missing}")
+        check(not plain, f"14a: distributed_im's rank {r} ran plain versions: {plain}")
+        for name, c in got.items():
+            launches[name] = launches.get(name, 0) + c
+    log(f"[14a] distributed_im: each of the {ns['RANKS']} ranks launched {', '.join(DIST_KERNELS)} "
+        f"in its mesh run, no plain version; rank 0 {rank_counts[0]['launches']}, rank 1 "
+        f"{rank_counts[1]['launches']}")
+    single_line = next(ln for ln in lines if ln.startswith("single-device:"))
+    g = ns["make_graph"]()
+    spec = ns["SPEC"].with_(backend="single")
+    half, t_k, t_p = _kernel_and_plain(lambda: run(g, ns["K"], spec, device="cuda").result,
+                                       SINGLE_KERNELS, "14a distributed_im single half")
+    check(single_line.endswith(f"spread={half.scores[-1]:.0f}"),
+          f"14a: the script's {single_line!r} against {half.scores[-1]}")
+    seconds["distributed_im"] = dict(wall_s=dist_s, single_kernel_s=t_k, single_plain_s=t_p,
+                                     ranks=rank_counts)
+    log(f"[14a] {DIST_SCRIPT}: {ns['RANKS']} ranks, exit 0, {dist_s:.1f}s with startup; its single "
+        f"half here equals the plain path's (seeds {half.seeds.tolist()[:5]}...; kernel "
+        f"path {t_k:.2f}s, plain path {t_p:.2f}s)")
+    return dict(launches=launches, seconds=seconds)
+
+
+def phase_models(k: int) -> dict:
+    """Phase 14 (b): ic:0.1, dic:1.0 and lt through the launcher at phase
+    4's size, each checked as phase 4 is."""
+    import torch
+
+    # phase 6's matrices served phases 7, 8 and 11; dropped, the peaks below
+    # read as phase 4's
+    _SERVE.clear()
+    log(f"[14b] allocated before the runs: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    launches: dict = {}
+    runs = {}
+    for model in ZOO:
+        runs[model] = phase_full(k, model=model, tag="14b")
+        for name, c in runs[model]["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+    return dict(launches=launches, runs=runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10,11,12,13")
+    ap.add_argument("--phases", default="1,2,3,4,4b,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--k", type=int, default=50, help="seed rounds of phases 4 and 4b")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3300,6 +3502,15 @@ def main(argv=None) -> int:
     if fasst:
         for row in rows:   # and on FASST's analysis (its kernel path)
             row["launches_fasst"] = int(fasst["launches"].get(row["name"], 0))
+    zoo = None
+    if "14" in phases:
+        t14 = time.perf_counter()
+        zoo = dict(scripts=phase_scripts(), models=phase_models(args.k))
+        zoo["phase_s"] = time.perf_counter() - t14
+        log(f"[14] phase {zoo['phase_s']:.1f}s")
+        for row in rows:   # and on the scripts' kernel paths, and the other models'
+            row["launches_scripts"] = int(zoo["scripts"]["launches"].get(row["name"], 0))
+            row["launches_models"] = int(zoo["models"]["launches"].get(row["name"], 0))
     log(f"total {time.perf_counter() - t0:.1f}s")
     if rows:
         OUT.mkdir(parents=True, exist_ok=True)
@@ -3307,7 +3518,7 @@ def main(argv=None) -> int:
         (OUT / "kernels.json").write_text(json.dumps(
             dict(rows=rows, full=full, serial=serial_out, serve=serve,
                  served_async=served_async, repair=repair, tuning=tuning, mesh=mesh,
-                 mesh_serve=mesh_serve, dryrun=dry, fasst=fasst, smi=smi),
+                 mesh_serve=mesh_serve, dryrun=dry, fasst=fasst, zoo=zoo, smi=smi),
             indent=1,
             default=str))
         print(json.dumps({"kernels": rows}))

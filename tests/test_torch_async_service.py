@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse)
 from repro.core import difuser as R_difuser
 from repro.graphs import rmat_graph as ref_rmat
 from repro.service import CostAwareEvictor as RCostAwareEvictor

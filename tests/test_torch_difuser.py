@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse)
 from repro.core import difuser as R
 from repro.graphs import rmat_graph as ref_rmat
 from repro_torch.core import difuser as T

@@ -1,6 +1,6 @@
 """The port stands alone: importing it loads neither jax nor the reference
-package, no source of it imports either, and no entry point falls back to
-the CPU."""
+package, no source of it (its examples and scripts too) imports either, and
+no entry point falls back to the CPU."""
 import os
 import re
 import subprocess
@@ -31,7 +31,9 @@ def test_import_loads_neither_jax_nor_repro():
     assert out[1].strip() == "[]", out[1]
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples_torch").glob("*.py"))
+                         + sorted((ROOT / "scripts_torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
     found = IMPORT_RE.findall(path.read_text())

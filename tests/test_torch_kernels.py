@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse)
 from repro.core.distributed import _bucket_sweep_cascade, _bucket_sweep_propagate
 from repro.core.sampling import fused_predicate, remix_interval_predicate
 from repro.kernels import ref

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse)
 from repro.core import difuser as R
 from repro.core.fasst import _sampled_by_any
 from repro.core.sampling import fused_predicate, remix_interval_predicate

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse)
 from repro.graphs import rmat_graph as ref_rmat
 from repro.obs.shardprof import MeasuredProfile as RefProfile
 from repro.partition.cost import PlanStats as RefPlanStats

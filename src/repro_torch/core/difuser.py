@@ -15,18 +15,21 @@ Where they lower the edges themselves, ``propagate`` and ``cascade`` are the
 two sweeps' work-list geometry (``kernels.edges.ItemGeometry``: edges an
 item, warps a block), which moves time and never a result.
 
-Spans (``obs.trace``; null and free while the recorder is off): the
-reference's ``single.find_seeds`` (build and rounds), ``single.build_matrix``
-(with its bandwidth, ``utils.roofline``) and ``single.warm_rounds``, and the
-port's own split of a driver run, which the reference's one-program jit has
-no room for: ``single.prep`` (sort, model lowering, upload), and per round
-``single.round`` with ``single.cascade_fixpoint`` and ``single.rebuild``
-inside, named as the serial ring's are. Each syncs the matrix it produced.
+Spans (``obs.trace``): the reference's ``single.find_seeds`` (build and
+rounds), ``single.build_matrix`` (with its bandwidth, ``utils.roofline``)
+and ``single.warm_rounds``, and the port's own split of a run, which
+the reference's one-program jit has no room for: ``single.prep`` with
+``single.sort_by_dst``, ``single.lower``, ``single.upload`` and
+``single.work_lists`` inside, ``single.seed_rounds``, and per round
+``single.round`` with ``single.select``, ``single.cascade_fixpoint``,
+``single.count_visited`` and ``single.rebuild`` inside, named as the serial
+ring's are. Each syncs what it produced. The spans whose time goes into
+``InfluenceResult.stats`` are ``timed``, so they measure with the recorder
+off too; the others are null and free then.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -42,8 +45,8 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.diffusion import resolve as resolve_model
 from repro_torch.diffusion.constants import DEFAULT_MODEL
 from repro_torch.graphs.structs import Graph
-from repro_torch.kernels import ops
-from repro_torch.kernels.edges import DEFAULT_GEOMETRY, EdgeOperands, ItemGeometry
+from repro_torch.kernels import cost, ops
+from repro_torch.kernels.edges import DEFAULT_GEOMETRY, EdgeOperands, ItemGeometry, upload
 from repro_torch.obs import trace
 from repro_torch.utils import roofline
 
@@ -70,9 +73,10 @@ class InfluenceResult:
     rebuilds: np.ndarray       # bool[K] whether round i rebuilt the sketches
     propagate_iters: int       # sweeps of the initial build's fixpoint
     x: np.ndarray              # the random vector used (uint32[J])
-    # where the time went (host clock, each phase ends in a device sync):
-    # prep_s (edge sort, model lowering, upload), build_s, rounds_s,
-    # cascade_sweeps, rebuild_sweeps
+    # where the time went (each its span's duration, ending in a device
+    # sync): prep_s (sort_s + lower_s + upload_s + worklists_s), build_s,
+    # rounds_s, visited_s (the rounds' visited counts); cascade_sweeps,
+    # rebuild_sweeps
     stats: dict = dataclasses.field(default_factory=dict)
 
 
@@ -140,18 +144,23 @@ def _seed_rounds(m, edges, x_t, *, k, n_real, num_regs, cfg, variant, stats):
     threshold, floor, regs = f32(cfg.rebuild_threshold), f32(1e-9), f32(num_regs)
     oldscore = f32(0.0)
     seeds, gains, scores, rebuilds = [], [], [], []
-    stats.update(cascade_sweeps=0, rebuild_sweeps=0)
+    stats.update(cascade_sweeps=0, rebuild_sweeps=0, visited_s=0.0)
     for i in range(k):
         with trace.span("single.round", phase="select", round=i) as rsp:
-            sums = _select.local_sums(m)
-            s, gain = _select.finish_select(sums, num_regs, n_real, estimator=cfg.estimator)
-            s = int(s.item())
+            with trace.span("single.select", round=i):
+                sums = _select.local_sums(m)
+                s, gain = _select.finish_select(sums, num_regs, n_real,
+                                                estimator=cfg.estimator)
+                s = int(s.item())
             with trace.span("single.cascade_fixpoint", phase="ring", round=i) as csp:
                 m, it = cascade_from_seed(m, s, edges, x_t, variant=variant,
                                           max_iters=cfg.max_cascade_iters)
                 csp.sync(m)
             stats["cascade_sweeps"] += it
-            new_score = f32(count_visited(m, n_real, num_regs).item()) / regs
+            with trace.span("single.count_visited", round=i, timed=True) as vsp:
+                visited = count_visited(m, n_real, num_regs).item()
+            stats["visited_s"] += vsp.duration_s
+            new_score = f32(visited) / regs
             rel = (new_score - oldscore) / np.maximum(new_score, floor)
             do_rebuild = bool(rel > threshold)
             if do_rebuild:
@@ -171,10 +180,16 @@ def _seed_rounds(m, edges, x_t, *, k, n_real, num_regs, cfg, variant, stats):
             np.asarray(scores, np.float32), np.asarray(rebuilds, bool))
 
 
-def _annotate_build(sp, iters: int, num_edges: int, num_regs: int) -> None:
-    """The build span's bandwidth: per sweep each real edge reads its 20 B
-    of operands and one register row, and writes one, per register."""
-    roofline.annotate_bandwidth(sp, iters * num_edges * (20 + 2 * num_regs), sp.duration_s)
+def _annotate_build(sp, iters: int, n: int, num_edges: int, num_regs: int, variant: int,
+                    *, fill: bool = True) -> None:
+    """The build span's bandwidth: the compulsory bytes of its fill (when
+    ``fill``) and ``iters`` propagate sweeps (``kernels.cost``, at the real
+    n, J and edges, as the benchmark's ``kernel_roofline_pct`` counts them)
+    over the span's time."""
+    nbytes = iters * cost.sketch_propagate(n, num_regs, num_edges, variant)[1]
+    if fill:
+        nbytes += cost.sketch_fill(n, num_regs)[1]
+    roofline.annotate_bandwidth(sp, nbytes, sp.duration_s)
 
 
 def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
@@ -211,7 +226,8 @@ def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
                                              max_iters=cfg.max_propagate_iters)
         sp.sync(m)
         sp.annotate(iters=iters)
-    _annotate_build(sp, iters, g.m_real, x.shape[0])
+    _annotate_build(sp, iters, g.n, g.m_real, x.shape[0], variant,
+                    fill=init_matrix is None)
     return real_columns(m, x.shape[0]), iters, x
 
 
@@ -223,32 +239,41 @@ def find_seeds(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
     random vector."""
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
-    t_prep = time.perf_counter()
-    with trace.span("single.prep", phase="plan", n=g.n, registers=cfg.num_registers) as sp:
-        g, x = normalize_inputs(g, cfg, x)
-        edges = edge_operands(g, cfg, dev, propagate=propagate, cascade=cascade)
+    with trace.span("single.prep", phase="plan", n=g.n, registers=cfg.num_registers,
+                    timed=True) as prep:
+        with trace.span("single.sort_by_dst", n=g.n, timed=True) as sort:
+            g, x = normalize_inputs(g, cfg, x)
+        with trace.span("single.lower", model=cfg.model, edges=g.m, timed=True) as lower:
+            ep = resolve_model(cfg.model).edge_params(g, seed=cfg.seed)
+            lower.annotate(bytes=ep.h.nbytes + ep.lo.nbytes + ep.thr.nbytes)
+        with trace.span("single.upload", edges=g.m, timed=True) as up:
+            operands = up.sync(upload(g.src, g.dst, ep.h, ep.lo, ep.thr, dev))
+            x_t = up.sync(x_tensor(x, dev))
+            up.annotate(bytes=sum(t.nbytes for t in operands) + x_t.nbytes)
+        with trace.span("single.work_lists", timed=True) as work:
+            edges = work.sync(EdgeOperands.from_device(*operands, g.n_pad,
+                                                       propagate=propagate,
+                                                       cascade=cascade))
         variant = resolve_model(cfg.model).variant
-        x_t = x_tensor(x, dev)
-        sp.sync(edges)
-    synchronize(dev)
-    t0 = time.perf_counter()
-    stats = {"prep_s": t0 - t_prep}
+    stats = {"prep_s": prep.duration_s, "sort_s": sort.duration_s,
+             "lower_s": lower.duration_s, "upload_s": up.duration_s,
+             "worklists_s": work.duration_s}
     with trace.span("single.find_seeds", phase="select", k=k, n=g.n,
                     registers=cfg.num_registers, model=cfg.model):
         with trace.span("single.build_matrix", phase="build", n=g.n,
-                        registers=cfg.num_registers, reg_offset=0, warm=False) as sp:
+                        registers=cfg.num_registers, reg_offset=0, warm=False,
+                        timed=True) as build:
             m, build_iters = _build(edges, x_t, g.n, num_regs=cfg.num_registers, cfg=cfg,
                                     variant=variant)
-            sp.sync(m)
-            sp.annotate(iters=build_iters)
-        _annotate_build(sp, build_iters, g.m_real, cfg.num_registers)
-        synchronize(dev)
-        t1 = time.perf_counter()
-        seeds, gains, scores, rebuilds = _seed_rounds(
-            m, edges, x_t, k=k, n_real=g.n, num_regs=cfg.num_registers, cfg=cfg,
-            variant=variant, stats=stats)
-        synchronize(dev)
-    stats.update(build_s=t1 - t0, rounds_s=time.perf_counter() - t1)
+            build.sync(m)
+            build.annotate(iters=build_iters)
+        _annotate_build(build, build_iters, g.n, g.m_real, cfg.num_registers, variant)
+        with trace.span("single.seed_rounds", phase="select", k=k, timed=True) as rounds:
+            seeds, gains, scores, rebuilds = _seed_rounds(
+                m, edges, x_t, k=k, n_real=g.n, num_regs=cfg.num_registers, cfg=cfg,
+                variant=variant, stats=stats)
+            synchronize(dev)
+    stats.update(build_s=build.duration_s, rounds_s=rounds.duration_s)
     return InfluenceResult(seeds=seeds, est_gains=gains, scores=scores,
                            rebuilds=rebuilds, propagate_iters=build_iters, x=x,
                            stats=stats)
@@ -268,14 +293,13 @@ def find_seeds_warm(g: Graph, k: int, config: Optional[DiFuserConfig] = None, *,
         edges = edge_operands(g, cfg, dev)
     x = np.asarray(x, dtype=np.uint32)
     stats = {}
-    t0 = time.perf_counter()
     with trace.span("single.warm_rounds", phase="select", k=k, n=g.n,
-                    registers=int(x.shape[0])):
+                    registers=int(x.shape[0]), timed=True) as rounds:
         seeds, gains, scores, rebuilds = _seed_rounds(
             _as_matrix(matrix, x.shape[0], dev), edges, x_tensor(x, dev), k=k, n_real=g.n,
             num_regs=x.shape[0], cfg=cfg, variant=resolve_model(cfg.model).variant,
             stats=stats)
         synchronize(dev)
-    stats.update(build_s=0.0, rounds_s=time.perf_counter() - t0)
+    stats.update(build_s=0.0, rounds_s=rounds.duration_s)
     return InfluenceResult(seeds=seeds, est_gains=gains, scores=scores,
                            rebuilds=rebuilds, propagate_iters=0, x=x, stats=stats)

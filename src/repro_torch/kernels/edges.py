@@ -127,18 +127,16 @@ class EdgeOperands:
                    cascade: ItemGeometry = DEFAULT_GEOMETRY) -> "EdgeOperands":
         """Upload numpy operands (int32 ids, uint32 ``h``/``lo``/``thr``);
         ``propagate`` and ``cascade`` are the work lists' geometry of
-        ``by_src`` and ``by_dst``."""
-        def ids(a):
-            return torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
+        ``by_src`` and ``by_dst``. ``upload`` then ``from_device``."""
+        return EdgeOperands.from_device(*upload(src, dst, h, lo, thr, device), n_pad,
+                                        propagate=propagate, cascade=cascade)
 
-        def bits(a):
-            a = np.require(a, np.uint32, ["C", "W"]).view(np.int32)
-            return torch.from_numpy(a).to(device)
-
-        src, dst = ids(src), ids(dst)
-        if src.numel() >= 2**31:
-            raise ValueError("edge count must stay below 2^31 (int32 row pointers)")
-        h, lo, thr = bits(h), bits(lo), bits(thr)
+    @staticmethod
+    def from_device(src, dst, h, lo, thr, n_pad: int, *,
+                    propagate: ItemGeometry = DEFAULT_GEOMETRY,
+                    cascade: ItemGeometry = DEFAULT_GEOMETRY) -> "EdgeOperands":
+        """Both row layouts and their work lists from operands already on
+        the device (``upload``'s), on that device."""
         return EdgeOperands(n_pad=int(n_pad), src=src, dst=dst, h=h, lo=lo, thr=thr,
                             by_src=with_work(group_rows(src, dst, h, lo, thr, n_pad),
                                              item_edges=propagate.edges,
@@ -146,6 +144,21 @@ class EdgeOperands:
                             by_dst=with_work(group_rows(dst, src, h, lo, thr, n_pad),
                                              item_edges=cascade.edges,
                                              item_warps=cascade.warps))
+
+
+def upload(src, dst, h, lo, thr, device):
+    """The five numpy operands on ``device``, as ``(src, dst, h, lo, thr)``
+    int32 tensors (``h``/``lo``/``thr`` holding the uint32 bits)."""
+    def ids(a):
+        return torch.from_numpy(np.require(a, np.int32, ["C", "W"])).to(device)
+
+    def bits(a):
+        a = np.require(a, np.uint32, ["C", "W"]).view(np.int32)
+        return torch.from_numpy(a).to(device)
+
+    if np.shape(src)[0] >= 2**31:
+        raise ValueError("edge count must stay below 2^31 (int32 row pointers)")
+    return ids(src), ids(dst), bits(h), bits(lo), bits(thr)
 
 
 def group_rows(key, nbr, h, lo, thr, n_rows: int) -> EdgeRows:

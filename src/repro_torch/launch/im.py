@@ -12,8 +12,10 @@
 
 It prints what the reference launcher prints (``graph n=… m=…``, then
 ``backend=…``, with the measured partition stats on a grid, and ``difuser:
-…s influence(est)=… rebuilds=…/K``), a line on where the time went and the
-seeds. The shard grid follows the reference launcher: ``--devices N`` asks
+…s influence(est)=… rebuilds=…/K``), a line on where the time went (the
+single path's prep split into sort, lower, upload and work lists, the
+ring's phase by phase, and the rounds' visited count) and the seeds. The
+shard grid follows the reference launcher: ``--devices N`` asks
 for ``mu_v`` vertex shards (``--mu-v``, or 2 when N is even) x ``N / mu_v``
 sim shards; without it ``--backend serial`` or ``mesh`` takes a ``(mu_v,
 2)`` grid, ``mu_v`` from ``--mu-v`` or 2. ``auto`` runs a grid on the
@@ -56,6 +58,10 @@ import time
 
 from repro_torch.baselines import influence_score, ris_find_seeds
 from repro_torch.launch.common import add_common_im_args, make_graph, observe
+
+#: the single path's ``prep_s`` split as the ``prep:`` line prints it
+PREP_PARTS = (("sort", "sort_s"), ("lower", "lower_s"), ("upload", "upload_s"),
+              ("work lists", "worklists_s"))
 
 
 def run(argv=None) -> dict:
@@ -134,14 +140,16 @@ def _run(args, rank: int = 0) -> dict:
             + " ".join(f"{f}={getattr(report.spec, f)}" for f in knobs) + " (0: the default)")
     say(f"difuser: {dt:.2f}s influence(est)={res.scores[-1]:.1f} "
         f"rebuilds={int(res.rebuilds.sum())}/{args.k}")
-    if "prep_s" in st:
-        prep = f"{st['prep_s']:.3f}s"
+    if "prep_s" in st:   # the single path's prep and its four parts
+        prep = f"{st['prep_s']:.3f}s (" + " ".join(
+            f"{label} {st[key]:.3f}s" for label, key in PREP_PARTS) + ")"
     else:   # the serial ring's host preparation, phase by phase
         prep = " ".join(f"{key[:-2]} {st[key]:.3f}s" for key in
                         ("sort_s", "sample_s", "plan_s", "buckets_s", "state_s"))
+    visited = f" visited {st['visited_s']:.3f}s" if "visited_s" in st else ""
     say(f"prep: {prep}; build: {st['build_s']:.3f}s "
         f"sweeps={res.propagate_iters}; "
-        f"rounds: {st['rounds_s']:.3f}s cascade sweeps={st['cascade_sweeps']} "
+        f"rounds: {st['rounds_s']:.3f}s{visited} cascade sweeps={st['cascade_sweeps']} "
         f"rebuild sweeps={st['rebuild_sweeps']}")
     say(f"seeds: {res.seeds.tolist()}")
     out = dict(backend=report.backend, device=report.device, time_s=dt, n=g.n,

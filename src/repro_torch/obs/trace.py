@@ -30,6 +30,15 @@ Design constraints:
     ``tid``, so Perfetto draws plan / build / fixpoint / select / ring /
     repair / query work as distinct lanes. A span with no phase inherits
     the enclosing span's (a thread-local stack), else ``"other"``.
+  * **The profiler's clock**: while the recorder is on, each span also
+    opens a ``torch.profiler.record_function`` range under its own name
+    (torch taken from ``sys.modules``, never imported here), so a
+    ``torch.profiler`` trace holds the program's spans on the profiler's
+    own clock, around the kernels they launched. With the recorder off no
+    range is entered, ``timed=True`` spans included.
+  * **Parents**: every real span gets an ``id``; a recorded event carries
+    it and the ``parent`` id of the span open around it (None at the top),
+    and the Chrome-trace export puts both in ``args``.
 
 Usage::
 
@@ -45,7 +54,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -117,11 +128,26 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+#: ids of real spans, unique within the process (``next`` holds the GIL)
+_IDS = itertools.count(1)
+
+
+def _profiler_range(name: str):
+    """An entered ``torch.profiler.record_function`` range named ``name``,
+    or None where torch is not loaded."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
+    rng = torch.profiler.record_function(name)
+    rng.__enter__()
+    return rng
+
+
 class Span:
     """One live timed region. Use via :func:`span`, not directly."""
 
-    __slots__ = ("name", "phase", "attrs", "t0", "t1", "depth", "_outputs",
-                 "_recorder")
+    __slots__ = ("name", "phase", "attrs", "t0", "t1", "depth", "id", "parent",
+                 "_outputs", "_recorder", "_range")
 
     def __init__(self, recorder: Optional["Recorder"], name: str,
                  phase: Optional[str], sync_value, attrs: Dict[str, Any]):
@@ -130,8 +156,11 @@ class Span:
         self.attrs = attrs
         self._outputs: List[Any] = [] if sync_value is None else [sync_value]
         self._recorder = recorder    # None: timed-only, nothing recorded
+        self._range = None
         self.t0 = self.t1 = 0.0
         self.depth = 0
+        self.id = next(_IDS)
+        self.parent: Optional[int] = None
 
     @property
     def duration_s(self) -> float:
@@ -156,7 +185,10 @@ class Span:
         if self.phase is None:
             self.phase = stack[-1].phase if stack else "other"
         self.depth = len(stack)
+        self.parent = stack[-1].id if stack else None
         stack.append(self)
+        if self._recorder is not None:
+            self._range = _profiler_range(self.name)
         self.t0 = time.perf_counter()
         return self
 
@@ -165,7 +197,11 @@ class Span:
             if self._outputs:
                 _block_until_ready(self._outputs)   # each stream once
         finally:
+            self._outputs.clear()   # a finished span keeps no tensor alive
             self.t1 = time.perf_counter()
+            if self._range is not None:
+                self._range.__exit__(None, None, None)
+                self._range = None
             stack = _STACK.spans
             if stack and stack[-1] is self:
                 stack.pop()
@@ -237,15 +273,16 @@ class Recorder:
     def _add(self, sp: Span) -> None:
         ev = {"name": sp.name, "phase": sp.phase or "other",
               "ts_s": sp.t0 - self._epoch, "dur_s": sp.t1 - sp.t0,
-              "depth": sp.depth, "attrs": sp.attrs}
+              "depth": sp.depth, "id": sp.id, "parent": sp.parent,
+              "attrs": sp.attrs}
         with self._lock:
             self._events.append(ev)
 
     # -- inspection --------------------------------------------------------
 
     def events(self) -> List[dict]:
-        """Recorded span dicts (name/phase/ts_s/dur_s/depth/attrs), in
-        completion order (children complete before parents)."""
+        """Recorded span dicts (name/phase/ts_s/dur_s/depth/id/parent/attrs),
+        in completion order (children complete before parents)."""
         with self._lock:
             return list(self._events)
 
@@ -261,7 +298,8 @@ class Recorder:
 
     def chrome_trace(self) -> dict:
         """The Chrome trace-event JSON object (Perfetto-loadable): one
-        complete ("ph": "X") event per span, one thread lane per phase."""
+        complete ("ph": "X") event per span, one thread lane per phase,
+        each span's ``depth``, ``id`` and ``parent`` in its ``args``."""
         events: List[dict] = [
             {"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
              "args": {"name": "repro_torch"}},
@@ -275,7 +313,7 @@ class Recorder:
                            "tid": tid, "args": {"sort_index": tid}})
         for ev in self.events():
             args = {k: _jsonable(v) for k, v in ev["attrs"].items()}
-            args["depth"] = ev["depth"]
+            args.update(depth=ev["depth"], id=ev["id"], parent=ev["parent"])
             events.append({
                 "ph": "X", "name": ev["name"], "pid": 0,
                 "tid": _PHASE_TID.get(ev["phase"], len(PHASES)),

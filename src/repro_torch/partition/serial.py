@@ -35,7 +35,9 @@ read from a shard the previous sweep changed (``sweep_propagate_restricted``),
 starting from the shards a delta touched.
 
 Observability: the drivers run in the reference's spans (``serial.*``), each
-synchronizing the grid it produced, and with a ``ShardProfiler`` set
+synchronizing the grid it produced; ``find_seeds_ring_serial``'s phase
+timings in ``InfluenceResult.stats`` are the durations of its ``timed``
+spans. With a ``ShardProfiler`` set
 (``obs.shardprof``, on by default for the builds) every (shard, ring step)
 merge of a full sweep is timed, by a pair of CUDA events on the card, read
 after the sweep's flag sync, and by the host clock on the CPU. Without a
@@ -361,21 +363,24 @@ def _prepare(g: Graph, x: np.ndarray, cfg: DiFuserConfig, *, mu_v: int, mu_s: in
              strategy: str, pad_mode: str, device, stats: dict,
              plan: Optional[PartitionPlan] = None, method: str = "fasst") -> Partition2D:
     """Sample sets (``method``: the sample partition, ``fasst`` or
-    ``naive``), plan (unless given) and buckets on ``device``, timed into
-    ``stats``."""
-    t0 = time.perf_counter()
-    sampled = sample_edge_sets(g, x, mu_s, seed=cfg.seed, model=cfg.model, method=method,
-                               device=device)
-    synchronize(device)
-    t1 = time.perf_counter()
-    if plan is None:
-        plan = plan_partition(g, mu_v, mu_s=mu_s, strategy=strategy, seed=cfg.seed,
-                              model=cfg.model, sampled=sampled)
-    t2 = time.perf_counter()
-    part = build_partition_2d(g, x, mu_v, mu_s, seed=cfg.seed, model=cfg.model,
-                              plan=plan, pad_mode=pad_mode, sampled=sampled)
-    synchronize(device)
-    stats.update(sample_s=t1 - t0, plan_s=t2 - t1, buckets_s=time.perf_counter() - t2)
+    ``naive``), plan (unless given) and buckets on ``device``, in the spans
+    ``serial.sample_sets``, ``serial.plan`` and ``serial.buckets``, whose
+    durations go into ``stats`` (``sample_s``, ``plan_s``, ``buckets_s``)."""
+    with trace.span("serial.sample_sets", phase="plan", mu_s=mu_s, timed=True) as sample:
+        sampled = sample_edge_sets(g, x, mu_s, seed=cfg.seed, model=cfg.model,
+                                   method=method, device=device)
+        synchronize(device)
+    with trace.span("serial.plan", phase="plan", strategy=strategy, timed=True) as planned:
+        if plan is None:
+            plan = plan_partition(g, mu_v, mu_s=mu_s, strategy=strategy, seed=cfg.seed,
+                                  model=cfg.model, sampled=sampled)
+    with trace.span("serial.buckets", phase="plan", mu_v=mu_v, mu_s=mu_s,
+                    timed=True) as buckets:
+        part = build_partition_2d(g, x, mu_v, mu_s, seed=cfg.seed, model=cfg.model,
+                                  plan=plan, pad_mode=pad_mode, sampled=sampled)
+        synchronize(device)
+    stats.update(sample_s=sample.duration_s, plan_s=planned.duration_s,
+                 buckets_s=buckets.duration_s)
     return part
 
 
@@ -387,8 +392,9 @@ def _build_profiler(st: _RingState, part: Partition2D, phase: str) -> None:
 
 def _publish_profile(st: _RingState, part: Partition2D, sp) -> None:
     """Publish the build's measured profile against the plan's prediction
-    and attribute its bandwidth to the span ``sp``. The null span (tracing
-    off) reports 0.0 seconds: the profiler's own clock is used then."""
+    and attribute its bandwidth to the span ``sp``, whose duration is the
+    profile's wall time; the null span (tracing off and not ``timed``)
+    reports 0.0 seconds, and the profiler's own clock is used then."""
     if st.profiler is None:
         return
     prof = shardprof.publish(st.profiler.finish(sp.duration_s or None),
@@ -407,40 +413,39 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     ``device="cpu"`` is passed. Returns ``(InfluenceResult, Partition2D)``;
     seeds are original vertex ids. ``result.stats`` holds the host clock of
     each phase (sort_s, sample_s, plan_s, buckets_s, state_s, build_s,
-    rounds_s, each ending in a device sync) and the sweep counts. ``plan``
-    replaces the ``strategy``'s planning with a precomputed plan. The sort
-    runs in ``serial.sort_by_dst`` and the ring state (work lists, fill) is
-    made in ``serial.ring_state`` (the port's spans), the build runs in ``serial.build_fixpoint`` and each round in
-    ``serial.round`` (with ``serial.cascade_fixpoint`` and
+    rounds_s, each its span's duration, ending in a device sync), visited_s
+    (the rounds' visited counts) and the sweep counts. ``plan`` replaces
+    the ``strategy``'s planning with a precomputed plan. The sort runs in
+    ``serial.sort_by_dst``, the partition in ``serial.sample_sets``,
+    ``serial.plan`` and ``serial.buckets``, the ring state (work lists,
+    fill) is made in ``serial.ring_state`` (the port's spans), the build
+    runs in ``serial.build_fixpoint``, the rounds in ``serial.seed_rounds``
+    and each round in ``serial.round`` (with ``serial.select``,
+    ``serial.cascade_fixpoint``, ``serial.visited_count`` and
     ``serial.rebuild`` inside)."""
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
-    t_sort = time.perf_counter()
-    with trace.span("serial.sort_by_dst", phase="plan", n=g.n):
+    with trace.span("serial.sort_by_dst", phase="plan", n=g.n, timed=True) as sort:
         g = g.sorted_by_dst()
     if x is None:
         x = make_x_vector(cfg.num_registers, seed=cfg.seed)
     x = np.asarray(x, dtype=np.uint32)
-    stats: dict = {"sort_s": time.perf_counter() - t_sort}
+    stats: dict = {"sort_s": sort.duration_s}
     part = _prepare(g, x, cfg, mu_v=mu_v, mu_s=mu_s, strategy=strategy, plan=plan,
                     pad_mode=pad_mode, device=dev, stats=stats)
-    t0 = time.perf_counter()
-    with trace.span("serial.ring_state", phase="build", mu_v=mu_v, mu_s=mu_s) as sp:
+    with trace.span("serial.ring_state", phase="build", mu_v=mu_v, mu_s=mu_s,
+                    timed=True) as state:
         st = _RingState(part, g, cfg, local_sweeps=local_sweeps, fuse_sweeps=fuse_sweeps,
                         lane_fill=lane_fill)
-        sp.sync(st.m)
+        state.sync(st.m)
     _build_profiler(st, part, "fixpoint")
-    synchronize(dev)
-    t1 = time.perf_counter()
     total_regs = part.mu_s * part.j_loc
     with trace.span("serial.build_fixpoint", phase="fixpoint", mu_v=mu_v,
-                    mu_s=mu_s) as sp:
+                    mu_s=mu_s, timed=True) as build:
         build_iters = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
-        sp.sync(st.m)
-        sp.annotate(iters=build_iters)
-    _publish_profile(st, part, sp)
-    synchronize(dev)
-    t2 = time.perf_counter()
+        build.sync(st.m)
+        build.annotate(iters=build_iters)
+    _publish_profile(st, part, build)
 
     f32 = np.float32
     seeds = np.zeros(k, dtype=np.int32)
@@ -448,29 +453,35 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     scores = np.zeros(k, dtype=f32)
     rebuilds = np.zeros(k, dtype=bool)
     oldscore = f32(0.0)
-    stats.update(cascade_sweeps=0, rebuild_sweeps=0)
-    for i in range(k):
-        with trace.span("serial.round", phase="select", round=i) as rsp:
-            s_v, gain = st.select(total_regs, part.n_pad)
-            st.commit(s_v)
-            with trace.span("serial.cascade_fixpoint", phase="ring", round=i) as csp:
-                stats["cascade_sweeps"] += st.fixpoint(st.sweep_cascade,
-                                                       cfg.max_cascade_iters)
-                csp.sync(st.m)
-            new_score = f32(st.visited_count()) / f32(total_regs)
-            rel = (new_score - oldscore) / np.maximum(new_score, f32(1e-9))
-            do_rebuild = bool(rel > f32(cfg.rebuild_threshold))
-            if do_rebuild:
-                with trace.span("serial.rebuild", phase="build", round=i) as bsp:
-                    st.refill()
-                    stats["rebuild_sweeps"] += st.fixpoint(st.sweep_propagate,
-                                                           cfg.max_propagate_iters)
-                    bsp.sync(st.m)
-                oldscore = new_score
-            rsp.annotate(seed=s_v, rebuild=do_rebuild)
-        seeds[i], gains[i], scores[i], rebuilds[i] = s_v, gain, new_score, do_rebuild
-    synchronize(dev)
-    stats.update(state_s=t1 - t0, build_s=t2 - t1, rounds_s=time.perf_counter() - t2)
+    stats.update(cascade_sweeps=0, rebuild_sweeps=0, visited_s=0.0)
+    with trace.span("serial.seed_rounds", phase="select", k=k, timed=True) as rounds:
+        for i in range(k):
+            with trace.span("serial.round", phase="select", round=i) as rsp:
+                with trace.span("serial.select", round=i):
+                    s_v, gain = st.select(total_regs, part.n_pad)
+                    st.commit(s_v)
+                with trace.span("serial.cascade_fixpoint", phase="ring", round=i) as csp:
+                    stats["cascade_sweeps"] += st.fixpoint(st.sweep_cascade,
+                                                           cfg.max_cascade_iters)
+                    csp.sync(st.m)
+                with trace.span("serial.visited_count", round=i, timed=True) as vsp:
+                    visited = st.visited_count()
+                stats["visited_s"] += vsp.duration_s
+                new_score = f32(visited) / f32(total_regs)
+                rel = (new_score - oldscore) / np.maximum(new_score, f32(1e-9))
+                do_rebuild = bool(rel > f32(cfg.rebuild_threshold))
+                if do_rebuild:
+                    with trace.span("serial.rebuild", phase="build", round=i) as bsp:
+                        st.refill()
+                        stats["rebuild_sweeps"] += st.fixpoint(st.sweep_propagate,
+                                                               cfg.max_propagate_iters)
+                        bsp.sync(st.m)
+                    oldscore = new_score
+                rsp.annotate(seed=s_v, rebuild=do_rebuild)
+            seeds[i], gains[i], scores[i], rebuilds[i] = s_v, gain, new_score, do_rebuild
+        synchronize(dev)
+    stats.update(state_s=state.duration_s, build_s=build.duration_s,
+                 rounds_s=rounds.duration_s)
     res = InfluenceResult(seeds=seeds, est_gains=gains, scores=scores, rebuilds=rebuilds,
                           propagate_iters=build_iters, x=np.sort(x), stats=stats)
     return res, part

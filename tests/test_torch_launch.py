@@ -60,6 +60,11 @@ def test_im_trace_and_metrics_match_the_reference_launcher(backend, tmp_path, ca
         T_shardprof.set_enabled(saved[0])
         R_shardprof.set_enabled(saved[1])
     assert out["port"]["seeds"] == out["ref"]["seeds"]
+    # the JSON carries every phase timing, the single path's prep split too
+    prep = ({"prep_s", "sort_s", "lower_s", "upload_s", "worklists_s"} if backend == "single"
+            else {"sort_s", "sample_s", "plan_s", "buckets_s", "state_s"})
+    assert prep | {"build_s", "rounds_s", "visited_s"} <= set(out["port"])
+    assert all(out["port"][key] >= 0 for key in prep)
     port, ref = _spans(tmp_path / "port.json"), _spans(tmp_path / "ref.json")
     port_names, ref_names = {e["name"] for e in port}, {e["name"] for e in ref}
     assert ref_names <= port_names, ref_names - port_names

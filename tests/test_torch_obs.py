@@ -124,8 +124,13 @@ def _nested(tr):
     f()
 
 
+#: what the port's recorder adds to the reference's events: ids and parents
+PORT_ONLY = ("id", "parent")
+
+
 def _shape(trace_json):
-    return [{k: v for k, v in ev.items() if k not in ("ts", "dur")}
+    return [{k: ({a: b for a, b in v.items() if a not in PORT_ONLY} if k == "args" else v)
+             for k, v in ev.items() if k not in ("ts", "dur")}
             for ev in trace_json["traceEvents"] if ev["name"] != "process_name"]
 
 
@@ -133,13 +138,23 @@ def test_span_nesting_phases_and_chrome_trace_match_reference(recorders):
     rt, rr = recorders
     _nested(T_trace)
     _nested(R_trace)
-    strip = [{k: v for k, v in ev.items() if k not in ("ts_s", "dur_s")}
+    strip = [{k: v for k, v in ev.items() if k not in ("ts_s", "dur_s") + PORT_ONLY}
              for ev in rt.events()]
     assert strip == [{k: v for k, v in ev.items() if k not in ("ts_s", "dur_s")}
                      for ev in rr.events()]
     by_name = {ev["name"]: ev for ev in rt.events()}
     assert by_name["inner"]["phase"] == "build" and by_name["inner"]["depth"] == 1
     assert by_name["leaf"]["depth"] == 2 and by_name["top"]["phase"] == "other"
+    # each event names the span open around it, and the export carries both
+    parent_of = {"outer": None, "inner": "outer", "leaf": "inner", "sibling": "outer",
+                 "top": None, "decorated": None}
+    for name, parent in parent_of.items():
+        want = by_name[parent]["id"] if parent else None
+        assert by_name[name]["parent"] == want, name
+    assert len({ev["id"] for ev in rt.events()}) == len(rt.events())
+    args = {e["name"]: e["args"] for e in rt.chrome_trace()["traceEvents"] if e["ph"] == "X"}
+    assert all(args[n]["id"] == by_name[n]["id"] and args[n]["parent"] == by_name[n]["parent"]
+               for n in parent_of)
     assert rt.phases_seen() == rr.phases_seen()
     assert _shape(rt.chrome_trace()) == _shape(rr.chrome_trace())
     assert rt.chrome_trace()["traceEvents"][0]["args"]["name"] == "repro_torch"

@@ -19,7 +19,8 @@ Spans (``obs.trace``): the reference's ``single.find_seeds`` (build and
 rounds), ``single.build_matrix`` (with its bandwidth, ``utils.roofline``)
 and ``single.warm_rounds``, and the port's own split of a run, which
 the reference's one-program jit has no room for: ``single.prep`` with
-``single.sort_by_dst``, ``single.lower``, ``single.upload`` and
+``single.sort_by_dst`` (the sort on the job's device, ``on=`` its type
+and ``bytes=`` what it copied), ``single.lower``, ``single.upload`` and
 ``single.work_lists`` inside, ``single.seed_rounds``, and per round
 ``single.round`` with ``single.select``, ``single.cascade_fixpoint``,
 ``single.count_visited`` and ``single.rebuild`` inside, named as the serial
@@ -89,10 +90,12 @@ def normalize_x(cfg: DiFuserConfig, x: Optional[np.ndarray]) -> np.ndarray:
 
 
 def normalize_inputs(g: Graph, config: Optional[DiFuserConfig] = None,
-                     x: Optional[np.ndarray] = None):
-    """Edges by destination, x normalized (idempotent)."""
+                     x: Optional[np.ndarray] = None, *, device=None):
+    """Edges by destination, x normalized (idempotent). The edges are sorted
+    on ``device`` where one is given, else on the host
+    (``Graph.sorted_by_dst``); the result is the same."""
     cfg = config or DiFuserConfig()
-    return g.sorted_by_dst(), normalize_x(cfg, x)
+    return g.sorted_by_dst(device), normalize_x(cfg, x)
 
 
 def edge_operands(g: Graph, cfg: DiFuserConfig, device, *,
@@ -210,7 +213,7 @@ def build_sketch_matrix(g: Graph, config: Optional[DiFuserConfig] = None,
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     if not normalized:
-        g, x = normalize_inputs(g, cfg, x)
+        g, x = normalize_inputs(g, cfg, x, device=dev)
     if edges is None:
         edges = edge_operands(g, cfg, dev, propagate=propagate, cascade=cascade)
     variant = resolve_model(cfg.model).variant
@@ -242,7 +245,8 @@ def find_seeds(g: Graph, k: int, config: Optional[DiFuserConfig] = None,
     with trace.span("single.prep", phase="plan", n=g.n, registers=cfg.num_registers,
                     timed=True) as prep:
         with trace.span("single.sort_by_dst", n=g.n, timed=True) as sort:
-            g, x = normalize_inputs(g, cfg, x)
+            sort.annotate(on=dev.type, bytes=g.dst_sort_bytes(dev))
+            g, x = normalize_inputs(g, cfg, x, device=dev)
         with trace.span("single.lower", model=cfg.model, edges=g.m, timed=True) as lower:
             ep = resolve_model(cfg.model).edge_params(g, seed=cfg.seed)
             lower.annotate(bytes=ep.h.nbytes + ep.lo.nbytes + ep.thr.nbytes)
@@ -289,7 +293,7 @@ def find_seeds_warm(g: Graph, k: int, config: Optional[DiFuserConfig] = None, *,
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     if edges is None:
-        g, x = normalize_inputs(g, cfg, x)
+        g, x = normalize_inputs(g, cfg, x, device=dev)
         edges = edge_operands(g, cfg, dev)
     x = np.asarray(x, dtype=np.uint32)
     stats = {}

@@ -1,4 +1,5 @@
-"""Graph container of the port (numpy, host side).
+"""Graph container of the port (numpy, host side; ``Graph.sorted_by_dst``
+may sort on a torch device).
 
 A copy of the reference package's ``graphs/structs.py`` (``Graph``,
 ``GraphDelta``, ``CSR``, ``edge_pair_keys``), kept here so that the port
@@ -99,14 +100,56 @@ class Graph:
         w[: self.m_real] = np.asarray(weight, dtype=np.float32)[: self.m_real]
         return dataclasses.replace(self, weight=w)
 
-    def sorted_by_dst(self) -> "Graph":
-        """Real edges sorted by (dst, src), padding kept at the end."""
+    def sorted_by_dst(self, device=None) -> "Graph":
+        """Real edges sorted by (dst, src), padding kept at the end.
+
+        Without a ``device`` the order is the host's ``np.lexsort``. With a
+        torch ``device`` it is a stable sort of the int64 key
+        ``dst * n_pad + src`` there (``n_pad < 2^31``, so the key cannot
+        overflow), which gives ``lexsort``'s order, ties among repeated pairs
+        included: the same arrays, byte for byte. The edges go up once and
+        come back as one int32 ``[3, m]`` block (``dst_sort_bytes``), whose
+        rows are the new ``src``, ``dst`` and ``weight``; the device's
+        temporaries are freed on return."""
         r = self.m_real
-        order = np.lexsort((self.src[:r], self.dst[:r]))
-        src = np.concatenate([self.src[:r][order], self.src[r:]])
-        dst = np.concatenate([self.dst[:r][order], self.dst[r:]])
-        w = np.concatenate([self.weight[:r][order], self.weight[r:]])
-        return dataclasses.replace(self, src=src, dst=dst, weight=w)
+        if device is None:
+            order = np.lexsort((self.src[:r], self.dst[:r]))
+            src = np.concatenate([self.src[:r][order], self.src[r:]])
+            dst = np.concatenate([self.dst[:r][order], self.dst[r:]])
+            w = np.concatenate([self.weight[:r][order], self.weight[r:]])
+            return dataclasses.replace(self, src=src, dst=dst, weight=w)
+        import torch
+
+        if (self.src.dtype, self.dst.dtype, self.weight.dtype) != (INT, INT, np.float32):
+            raise TypeError("a device sort takes int32 ids and float32 weights, not "
+                            f"{self.src.dtype}, {self.dst.dtype}, {self.weight.dtype}")
+        cols = [torch.from_numpy(np.require(a, None, ["C", "W"])).to(device)
+                for a in (self.src, self.dst, self.weight.view(INT))]
+        key = cols[1][:r].long() * self.n_pad + cols[0][:r]
+        order = torch.sort(key, stable=True).indices
+        del key
+        perm = torch.cat([order, torch.arange(r, self.m, device=order.device)])
+        del order
+        block = torch.stack(cols).index_select(1, perm)
+        if block.is_cuda:
+            # page-locked memory that torch's host allocator keeps from one
+            # call to the next: the copy back runs at the bus's rate, with
+            # no page faults
+            block = torch.empty(block.shape, dtype=block.dtype,
+                                pin_memory=True).copy_(block)
+        block = block.numpy()
+        return dataclasses.replace(self, src=block[0], dst=block[1],
+                                   weight=block[2].view(np.float32))
+
+    def dst_sort_bytes(self, device) -> int:
+        """Bytes that ``sorted_by_dst(device)`` copies between the host and
+        the device: the edge arrays up and the sorted block back, none where
+        the device is the CPU."""
+        import torch
+
+        if torch.device(device).type == "cpu":
+            return 0
+        return 2 * (self.src.nbytes + self.dst.nbytes + self.weight.nbytes)
 
     def reverse(self) -> "Graph":
         """The transposed graph: every edge's endpoints swapped."""

@@ -415,8 +415,9 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     each phase (sort_s, sample_s, plan_s, buckets_s, state_s, build_s,
     rounds_s, each its span's duration, ending in a device sync), visited_s
     (the rounds' visited counts) and the sweep counts. ``plan`` replaces
-    the ``strategy``'s planning with a precomputed plan. The sort runs in
-    ``serial.sort_by_dst``, the partition in ``serial.sample_sets``,
+    the ``strategy``'s planning with a precomputed plan. The sort runs on
+    the job's device in ``serial.sort_by_dst`` (``on=``, ``bytes=``), the
+    partition in ``serial.sample_sets``,
     ``serial.plan`` and ``serial.buckets``, the ring state (work lists,
     fill) is made in ``serial.ring_state`` (the port's spans), the build
     runs in ``serial.build_fixpoint``, the rounds in ``serial.seed_rounds``
@@ -426,7 +427,8 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     with trace.span("serial.sort_by_dst", phase="plan", n=g.n, timed=True) as sort:
-        g = g.sorted_by_dst()
+        sort.annotate(on=dev.type, bytes=g.dst_sort_bytes(dev))
+        g = g.sorted_by_dst(dev)
     if x is None:
         x = make_x_vector(cfg.num_registers, seed=cfg.seed)
     x = np.asarray(x, dtype=np.uint32)

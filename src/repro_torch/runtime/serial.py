@@ -64,7 +64,7 @@ class SerialRingBackend(Backend):
         spec = apply_tuning(g, spec, self.name, device=device)
         cfg = spec.difuser_config()
         if not normalized:
-            g, x = normalize_inputs(g, cfg, x)
+            g, x = normalize_inputs(g, cfg, x, device=resolve_device(device))
         mu_v, mu_s = _grid(spec)
         if np.asarray(x).shape[0] % mu_s:
             mu_s = 1   # a bank narrower than the sim grid stays whole

@@ -1,6 +1,8 @@
 """``device_idle_pct``: the share of the traced jobs' wall time in which no
 operation ran on the device (the union of the profiler's kernel, copy and
-set intervals). Nothing where the profile holds no device activity."""
+set intervals); on a world, of the ranks' busy and traced seconds averaged
+over their cards, as the result's ``device`` gives them. Nothing where the
+profile holds no device activity."""
 
 
 def read(win):

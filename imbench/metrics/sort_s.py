@@ -1,5 +1,6 @@
-"""``sort_s``: the host sort of the edges by destination, in
-``single.sort_by_dst`` or the ring's ``serial.sort_by_dst``."""
+"""``sort_s``: the sort of the edges by destination: on the job's device in
+``single.sort_by_dst`` and the ring's ``serial.sort_by_dst``, on the host
+(``Graph.sorted_by_dst()`` without a device) on each rank of the mesh."""
 from imbench.metrics._stats import mean_of
 
 

@@ -12,10 +12,16 @@ metrics with ``--trace 0``, its per-layer metrics with ``--trace 1``),
 number compared with the reference beside its limit, which are also the
 last lines of standard error.
 
+A cell whose ``chips`` is more than 1 runs as a world of one rank a card
+(``harness/world.py``): this process starts the ranks, each this script
+with the same arguments, passes on rank 0's output and exits 0 only if
+every rank did. A one-card cell runs in this process alone.
+
 Without a CUDA device, or with fewer than the cell asks for, it prints no
 result and exits with 2; it never falls back to the CPU. It exits with 3,
 and prints no result, if jax, jaxlib, flax or the JAX package ``repro`` is
-loaded once the window has closed.
+loaded once the window has closed: in this process, or in any rank of a
+world.
 """
 import time
 
@@ -23,6 +29,7 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -54,14 +61,28 @@ def main(argv=None, *, bench=None, data_dir=None, device=None, t_start=T_START) 
     """``bench``, ``data_dir`` and ``device`` stand in for ``BENCHMARK.json``,
     the benchmark's data files and the card, in the tests."""
     args = parse(argv)
-    import torch
-
-    marks = {"torch": time.perf_counter()}
-    from imbench.harness import bench as _bench
     from imbench.harness import cells
 
+    rank = None
+    if os.environ.get("IMBENCH_WORLD"):  # world.WORLD_ENV: a rank this script started
+        from imbench.harness import world
+
+        rank = world.Rank.from_env()
+        bench, data_dir, device, t_start = rank.bench, rank.data_dir, rank.device, rank.t_start
     cell = cells.load_cell(bench if bench is not None else cells.load_benchmark(ROOT),
-                           args.workload, data_dir or cells.HERE)
+                           args.workload, Path(data_dir) if data_dir else cells.HERE)
+    if cell.chips > 1 and rank is None:
+        from imbench.harness import world
+
+        return world.launch(args, cell.chips, t_start=t_start, forbidden=forbidden_modules,
+                            bench=bench, data_dir=data_dir, device=device)
+    # a rank's set-up counts from the launcher's start, its own start a step of it
+    marks = {} if rank is None else {"rank started": T_START}
+    import torch
+
+    marks["torch"] = time.perf_counter()
+    from imbench.harness import bench as _bench
+
     if device is None:
         marks["harness"] = time.perf_counter()
         if not torch.cuda.is_available():
@@ -74,13 +95,21 @@ def main(argv=None, *, bench=None, data_dir=None, device=None, t_start=T_START) 
             return 2
         device = "cuda"
         marks["driver"] = time.perf_counter()
+    joined = None
+    if rank is not None:
+        joined = rank.join(device)
+        device = joined.device
+        marks["world"] = time.perf_counter()
     result = _bench.run_cell(cell, seed=args.seed % 2 ** 64, seconds=args.seconds,
                              trace=bool(args.trace), device=device, t_start=t_start,
-                             marks=marks)
+                             marks=marks, world=joined)
     bad = forbidden_modules()
-    if bad:
-        print(f"imbench: loaded in the reporting process: {bad}", file=sys.stderr)
+    if bad:  # a rank other than 0 fails the launcher, which then prints nothing
+        where = "the reporting process" if result is not None else f"rank {rank.rank}"
+        print(f"imbench: loaded in {where}: {bad}", file=sys.stderr)
         return 3
+    if result is None:  # a rank of a world other than rank 0
+        return 0
     print(json.dumps(result), flush=True)
     return 0
 

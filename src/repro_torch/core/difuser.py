@@ -24,7 +24,9 @@ and ``bytes=`` what it copied), ``single.lower``, ``single.upload`` and
 ``single.work_lists`` inside, ``single.seed_rounds``, and per round
 ``single.round`` with ``single.select``, ``single.cascade_fixpoint``,
 ``single.count_visited`` and ``single.rebuild`` inside, named as the serial
-ring's are. Each syncs what it produced. The spans whose time goes into
+ring's are; the two fixpoints carry their ``sweeps=``, the cascade its
+``seed=`` and the rebuild ``fill=1``. Each syncs what it produced (a
+fixpoint by its last sweep's flag read). The spans whose time goes into
 ``InfluenceResult.stats`` are ``timed``, so they measure with the recorder
 off too; the others are null and free then.
 """
@@ -76,8 +78,9 @@ class InfluenceResult:
     x: np.ndarray              # the random vector used (uint32[J])
     # where the time went (each its span's duration, ending in a device
     # sync): prep_s (sort_s + lower_s + upload_s + worklists_s), build_s,
-    # rounds_s, visited_s (the rounds' visited counts); cascade_sweeps,
-    # rebuild_sweeps
+    # rounds_s, and of the rounds visited_s (the visited counts), cascade_s
+    # (the cascade fixpoints) and rebuild_s (the lazy rebuilds' fills and
+    # fixpoints); cascade_sweeps, rebuild_sweeps
     stats: dict = dataclasses.field(default_factory=dict)
 
 
@@ -147,7 +150,8 @@ def _seed_rounds(m, edges, x_t, *, k, n_real, num_regs, cfg, variant, stats):
     threshold, floor, regs = f32(cfg.rebuild_threshold), f32(1e-9), f32(num_regs)
     oldscore = f32(0.0)
     seeds, gains, scores, rebuilds = [], [], [], []
-    stats.update(cascade_sweeps=0, rebuild_sweeps=0, visited_s=0.0)
+    stats.update(cascade_sweeps=0, rebuild_sweeps=0, visited_s=0.0, cascade_s=0.0,
+                 rebuild_s=0.0)
     for i in range(k):
         with trace.span("single.round", phase="select", round=i) as rsp:
             with trace.span("single.select", round=i):
@@ -155,11 +159,15 @@ def _seed_rounds(m, edges, x_t, *, k, n_real, num_regs, cfg, variant, stats):
                 s, gain = _select.finish_select(sums, num_regs, n_real,
                                                 estimator=cfg.estimator)
                 s = int(s.item())
-            with trace.span("single.cascade_fixpoint", phase="ring", round=i) as csp:
+            # the two fixpoints end in their last sweep's flag read, which
+            # is their sync: timing them adds none
+            with trace.span("single.cascade_fixpoint", phase="ring", round=i,
+                            timed=True) as csp:
                 m, it = cascade_from_seed(m, s, edges, x_t, variant=variant,
                                           max_iters=cfg.max_cascade_iters)
-                csp.sync(m)
+                csp.annotate(seed=s, sweeps=it)
             stats["cascade_sweeps"] += it
+            stats["cascade_s"] += csp.duration_s
             with trace.span("single.count_visited", round=i, timed=True) as vsp:
                 visited = count_visited(m, n_real, num_regs).item()
             stats["visited_s"] += vsp.duration_s
@@ -167,12 +175,14 @@ def _seed_rounds(m, edges, x_t, *, k, n_real, num_regs, cfg, variant, stats):
             rel = (new_score - oldscore) / np.maximum(new_score, floor)
             do_rebuild = bool(rel > threshold)
             if do_rebuild:
-                with trace.span("single.rebuild", phase="build", round=i) as bsp:
+                with trace.span("single.rebuild", phase="build", round=i,
+                                timed=True) as bsp:
                     m = ops.sketch_fill(m, reg_offset=0, seed=cfg.seed)
                     m, it = propagate_to_fixpoint(m, edges, x_t, variant=variant,
                                                   max_iters=cfg.max_propagate_iters)
-                    bsp.sync(m)
+                    bsp.annotate(fill=1, sweeps=it)
                 stats["rebuild_sweeps"] += it
+                stats["rebuild_s"] += bsp.duration_s
                 oldscore = new_score
             rsp.annotate(seed=s, rebuild=do_rebuild)
         seeds.append(s)

@@ -413,17 +413,19 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     ``device="cpu"`` is passed. Returns ``(InfluenceResult, Partition2D)``;
     seeds are original vertex ids. ``result.stats`` holds the host clock of
     each phase (sort_s, sample_s, plan_s, buckets_s, state_s, build_s,
-    rounds_s, each its span's duration, ending in a device sync), visited_s
-    (the rounds' visited counts) and the sweep counts. ``plan`` replaces
-    the ``strategy``'s planning with a precomputed plan. The sort runs on
+    rounds_s, each its span's duration, ending in a device sync), of the
+    rounds visited_s, cascade_s and rebuild_s (the visited counts, the
+    cascade fixpoints, the lazy rebuilds), and the sweep counts. ``plan``
+    replaces the ``strategy``'s planning with a precomputed plan. The sort runs on
     the job's device in ``serial.sort_by_dst`` (``on=``, ``bytes=``), the
     partition in ``serial.sample_sets``,
     ``serial.plan`` and ``serial.buckets``, the ring state (work lists,
     fill) is made in ``serial.ring_state`` (the port's spans), the build
     runs in ``serial.build_fixpoint``, the rounds in ``serial.seed_rounds``
     and each round in ``serial.round`` (with ``serial.select``,
-    ``serial.cascade_fixpoint``, ``serial.visited_count`` and
-    ``serial.rebuild`` inside)."""
+    ``serial.cascade_fixpoint`` (``seed=``, ``sweeps=``),
+    ``serial.visited_count`` and ``serial.rebuild`` (``fill=1``,
+    ``sweeps=``) inside)."""
     cfg = config or DiFuserConfig()
     dev = resolve_device(device)
     with trace.span("serial.sort_by_dst", phase="plan", n=g.n, timed=True) as sort:
@@ -455,17 +457,22 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
     scores = np.zeros(k, dtype=f32)
     rebuilds = np.zeros(k, dtype=bool)
     oldscore = f32(0.0)
-    stats.update(cascade_sweeps=0, rebuild_sweeps=0, visited_s=0.0)
+    stats.update(cascade_sweeps=0, rebuild_sweeps=0, visited_s=0.0, cascade_s=0.0,
+                 rebuild_s=0.0)
     with trace.span("serial.seed_rounds", phase="select", k=k, timed=True) as rounds:
         for i in range(k):
             with trace.span("serial.round", phase="select", round=i) as rsp:
                 with trace.span("serial.select", round=i):
                     s_v, gain = st.select(total_regs, part.n_pad)
                     st.commit(s_v)
-                with trace.span("serial.cascade_fixpoint", phase="ring", round=i) as csp:
-                    stats["cascade_sweeps"] += st.fixpoint(st.sweep_cascade,
-                                                           cfg.max_cascade_iters)
-                    csp.sync(st.m)
+                # the two fixpoints end in their last sweep's flag read, which
+                # is their sync: timing them adds none
+                with trace.span("serial.cascade_fixpoint", phase="ring", round=i,
+                                timed=True) as csp:
+                    it = st.fixpoint(st.sweep_cascade, cfg.max_cascade_iters)
+                    csp.annotate(seed=s_v, sweeps=it)
+                stats["cascade_sweeps"] += it
+                stats["cascade_s"] += csp.duration_s
                 with trace.span("serial.visited_count", round=i, timed=True) as vsp:
                     visited = st.visited_count()
                 stats["visited_s"] += vsp.duration_s
@@ -473,11 +480,13 @@ def find_seeds_ring_serial(g: Graph, k: int, config: Optional[DiFuserConfig] = N
                 rel = (new_score - oldscore) / np.maximum(new_score, f32(1e-9))
                 do_rebuild = bool(rel > f32(cfg.rebuild_threshold))
                 if do_rebuild:
-                    with trace.span("serial.rebuild", phase="build", round=i) as bsp:
+                    with trace.span("serial.rebuild", phase="build", round=i,
+                                    timed=True) as bsp:
                         st.refill()
-                        stats["rebuild_sweeps"] += st.fixpoint(st.sweep_propagate,
-                                                               cfg.max_propagate_iters)
-                        bsp.sync(st.m)
+                        it = st.fixpoint(st.sweep_propagate, cfg.max_propagate_iters)
+                        bsp.annotate(fill=1, sweeps=it)
+                    stats["rebuild_sweeps"] += it
+                    stats["rebuild_s"] += bsp.duration_s
                     oldscore = new_score
                 rsp.annotate(seed=s_v, rebuild=do_rebuild)
             seeds[i], gains[i], scores[i], rebuilds[i] = s_v, gain, new_score, do_rebuild
